@@ -19,3 +19,8 @@ if "xla_force_host_platform_device_count" not in _flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")

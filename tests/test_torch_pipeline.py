@@ -1,0 +1,173 @@
+"""End-to-end parity of the PyTorch port's ``run_pipeline`` with the JAX
+package's, on the CPU, with the pipeline_512 (bench) configuration.
+
+Raw phantoms: the tube of tests/test_pipeline.py and a small branching
+tree.  Tolerances (values measured on a CPU in brackets):
+
+  * masks agree on >= 99.9% of their union [identical];
+  * where the masks are equal: identical segments, and pressures and
+    flows within 1e-9 relative at f64 [0] and 1e-5 at f32 [flows 1.4e-7].
+
+A last test runs the port in a fresh interpreter in which ``jax`` and
+``networkx`` cannot be imported, as on a machine without either.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from arterynetwork_tpu.config import PipelineConfig
+from arterynetwork_tpu.pipeline import run_pipeline as jax_run_pipeline
+from arterynetwork_tpu.utils.phantoms import (phantom_raw_volume,
+                                              vascular_tree_phantom)
+from arterynetwork_tpu_torch import convert
+from arterynetwork_tpu_torch.pipeline import run_pipeline
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _raw(kind):
+    if kind == "tube":   # tests/test_pipeline.py::test_pipeline_from_raw_volume
+        shape = (40, 40, 56)
+        rng = np.random.default_rng(2)
+        raw = rng.normal(100.0, 3.0, shape).astype(np.float32)
+        x, y = np.mgrid[: shape[0], : shape[1]]
+        tube = ((x - 20) ** 2 + (y - 20) ** 2 <= 3 ** 2)
+        for z in range(6, 50):
+            raw[:, :, z] += 120.0 * tube
+        return raw
+    ph = vascular_tree_phantom((48, 64, 64), n_branches=12, root_radius=3.0,
+                               branch_length=(12, 25), seed=1)
+    return phantom_raw_volume(ph)
+
+
+def _bench_config(dtype):
+    """bench.py::bench_pipeline_512's configuration."""
+    cfg = PipelineConfig()
+    cfg.vesselness.sigmas = (0.75, 1.0, 2.0, 3.0)
+    cfg.vesselness.upload_format = "bq4"
+    cfg.segmentation.global_threshold_fraction = 0.3
+    cfg.segmentation.weak_threshold_fraction = 0.03
+    cfg.segmentation.border_margin_voxels = 6
+    cfg.segmentation.min_component_size = 50
+    cfg.skeleton.backend = "native"
+    cfg.skeleton.prune_min_length = 4
+    cfg.flow.dtype = dtype
+    cfg.flow.linear_solver = "auto"
+    return cfg
+
+
+def _rel(a, b):
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+@pytest.mark.parametrize("kind,dtype,tol", [("tube", "float64", 1e-9),
+                                            ("tree", "float64", 1e-9),
+                                            ("tree", "float32", 1e-5)])
+def test_run_pipeline_matches_jax(kind, dtype, tol):
+    raw = _raw(kind)
+    cfg = _bench_config(dtype)
+    ref = jax_run_pipeline(raw_volume=raw, config=cfg)
+    ref_mask = ref["mask"].copy()   # the JAX mask lives in reused scratch
+    out = run_pipeline(raw_volume=raw, config=convert.pipeline_config(cfg),
+                       device="cpu")
+
+    assert set(out) == set(ref)
+    assert set(out["timings"]) == set(ref["timings"])
+    union = np.count_nonzero(out["mask"] | ref_mask)
+    agree = union - np.count_nonzero(out["mask"] != ref_mask)
+    assert union > 500 and agree >= 0.999 * union
+    if not np.array_equal(out["mask"], ref_mask):
+        return
+    assert [list(map(tuple, s)) for s in out["segments"]] == \
+        [list(map(tuple, s)) for s in ref["segments"]]
+    assert out["attrs"] == ref["attrs"]
+    assert out["network"].num_edges == ref["network"].num_edges
+    sol, rsol = out["solution"], ref["solution"]
+    assert _rel(sol.pressure.numpy(), np.asarray(rsol.pressure)) <= tol
+    assert _rel(sol.flow.numpy(), np.asarray(rsol.flow)) <= tol
+    np.testing.assert_array_equal(out["network"].node_pressure,
+                                  sol.pressure.numpy())
+
+
+def test_graph_stage_full_frame_matches_jax():
+    """graph_stage without a given distance transform computes the EDT
+    itself (full frame, origin 0)."""
+    from arterynetwork_tpu.pipeline import graph_stage as jax_graph_stage
+    from arterynetwork_tpu.pipeline import compute_mask_edt, \
+        skeletonize_stage
+    from arterynetwork_tpu_torch.pipeline import graph_stage
+
+    ph = vascular_tree_phantom((48, 64, 64), n_branches=12, root_radius=3.0,
+                               branch_length=(12, 25), seed=1)
+    mask = ph["mask"].astype(np.uint8)
+    cfg = _bench_config("float64")
+    skel = skeletonize_stage(mask, cfg,
+                             distance_transform=compute_mask_edt(mask))
+    _, ref_segs, ref_attrs = jax_graph_stage(skel, mask, cfg,
+                                             build_nx=False)
+    G, segs, attrs = graph_stage(skel, mask,
+                                 convert.pipeline_config(cfg))
+    assert G is None and len(segs) >= 5
+    assert [list(map(tuple, s)) for s in segs] == \
+        [list(map(tuple, s)) for s in ref_segs]
+    assert attrs == ref_attrs
+
+
+def test_unported_paths_raise():
+    raw = _raw("tube")
+    cfg = convert.pipeline_config(_bench_config("float64"))
+    with pytest.raises(NotImplementedError):
+        run_pipeline(raw_volume=raw, seed_mask=np.ones(raw.shape, bool),
+                     config=cfg, device="cpu")
+    cfg.flow.graph_path = "nx"
+    with pytest.raises(NotImplementedError):
+        run_pipeline(raw_volume=raw, config=cfg, device="cpu")
+
+
+_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None        # any import of jax now fails
+sys.modules["networkx"] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from arterynetwork_tpu_torch.config import PipelineConfig
+from arterynetwork_tpu_torch.pipeline import run_pipeline
+
+rng = np.random.default_rng(2)
+raw = rng.normal(100.0, 3.0, (40, 40, 56)).astype(np.float32)
+x, y = np.mgrid[:40, :40]
+raw[:, :, 6:50] += 120.0 * ((x - 20) ** 2 + (y - 20) ** 2 <= 9)[..., None]
+cfg = PipelineConfig()
+cfg.vesselness.sigmas = (0.75, 1.0, 2.0, 3.0)
+cfg.vesselness.upload_format = "bq4"
+cfg.segmentation.global_threshold_fraction = 0.3
+cfg.segmentation.weak_threshold_fraction = 0.03
+cfg.segmentation.border_margin_voxels = 6
+cfg.segmentation.min_component_size = 50
+cfg.flow.dtype = "float32"
+cfg.flow.linear_solver = "auto"
+r = run_pipeline(raw_volume=raw, config=cfg, device="cpu")
+assert r["mask"].sum() > 500 and len(r["segments"]) >= 1
+assert torch.isfinite(r["solution"].pressure).all()
+assert not [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "networkx", "arterynetwork_tpu")
+            and sys.modules[m] is not None]
+print("ran without jax")
+"""
+
+
+def test_port_runs_without_jax_or_networkx():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_JAX], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "ran without jax" in proc.stdout
