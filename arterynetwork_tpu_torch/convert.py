@@ -2,9 +2,10 @@
 
 The functions read their inputs by attribute only (no import of JAX or of
 the JAX package): any object with the fields of the JAX package's
-``FlowSystem``, ``EliminationPlan`` or ``PipelineConfig`` converts, with
-array fields given as numpy arrays or anything ``np.asarray`` takes.
-Used by the parity tests to feed both solvers the same system.
+``FlowSystem``, ``EliminationPlan``, ``PipelineConfig`` or
+``RegionGrowResult`` converts, with array fields given as numpy arrays or
+anything ``np.asarray`` takes.  Used by the parity tests to feed both
+packages the same state.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from .config import PipelineConfig
 from .flow.system import FlowSystem
 from .flow.tree_solver import EliminationPlan
+from .ops.region_grow import RegionGrowResult
 
 _INDEX_FIELDS = ("head", "tail", "node_arg", "node_unknown_index",
                  "conserve_nodes", "bc_edge", "node_depth")
@@ -65,3 +67,21 @@ def pipeline_config(src) -> PipelineConfig:
         values = dataclasses.asdict(getattr(src, section.name))
         setattr(out, section.name, type(getattr(out, section.name))(**values))
     return out
+
+
+def region_grow_result(src, device="cuda") -> RegionGrowResult:
+    """A JAX ``RegionGrowResult`` -> the port's, on ``device`` (bool maps,
+    int32 scalars)."""
+    def mask(name):
+        return torch.as_tensor(np.array(getattr(src, name), bool),
+                               device=device)
+
+    def scalar(name):
+        return torch.tensor(int(np.asarray(getattr(src, name))),
+                            dtype=torch.int32, device=device)
+
+    return RegionGrowResult(
+        segmented_map=mask("segmented_map"), active_map=mask("active_map"),
+        iterations=scalar("iterations"),
+        segmented_count=scalar("segmented_count"),
+        stop_reason=scalar("stop_reason"))

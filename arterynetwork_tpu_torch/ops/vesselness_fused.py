@@ -17,65 +17,20 @@ not count), so a run can show that it went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
 
+from . import cuda_build
 from .vesselness import _hessian_from_smoothed, _response_from_hessian
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "frangi_response.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-_SO = os.path.join(_BUILD_DIR, "frangi_response.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
 
-_lib = None
-
-
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    return path if os.path.exists(path) else (shutil.which("nvcc") or path)
-
-
-def build_kernel():
-    """Compile ``csrc/frangi_response.cu`` into ``build/kernels/`` and
-    return ``(seconds, compiler output)``.  The library is written under
-    a private name and renamed into place, so concurrent loaders never map
-    a half-written file."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, _SO)
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _kernel_lib():
-    global _lib
-    if _lib is None:
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            build_kernel()
-        lib = ctypes.CDLL(_SO)
-        lib.frangi_response_max.restype = ctypes.c_int
-        lib.frangi_response_max.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        _lib = lib
-    return _lib
+    return cuda_build.load("frangi_response", frangi_response_max=[
+        _P, _I, _I, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _I, _P])
 
 
 def frangi_response_plain_(best, best_z0, sm, z_lo, zr, sigma, g,
@@ -142,9 +97,7 @@ def frangi_response_max_(best, best_z0, sm, z_lo, zr, sigma, g,
             float(one / np.float32(2 * alpha ** 2)),
             float(one / np.float32(2 * beta ** 2)), int(bool(bright)),
             stream)
-    if rc:
-        raise RuntimeError(f"frangi_response_max launch failed: CUDA "
-                           f"error {rc}")
+    cuda_build.check(rc, "frangi_response_max")
     frangi_response_max_.launches += 1
 
 

@@ -7,15 +7,17 @@ Port of the JAX package's pipeline.py along its main path:
                                  Frangi response is the CUDA kernel K1)
              -> vessel mask     (thresholds and 2x any-pooled seeds on
                                  ``device``, then the native seeded flood
-                                 fill on the host)
+                                 fill on the host; or, given a seed mask,
+                                 variational region growing on ``device``
+                                 with the kernels K2 and K6)
              -> EDT + thinning  (native C++, box-cropped)
              -> segments + branch attributes (numpy + native)
              -> FlowNetwork + Newton solve   (flow/, on ``device``)
 
 Every function takes an explicit ``device`` that its tensors live on.
 Not ported yet (they raise ``NotImplementedError``): brain masks, the
-tip extension, seeded region growing, the networkx graph path, the JAX
-thinning backend, and the artifact store.
+tip extension, the networkx graph path, the JAX thinning backend, and
+the artifact store.
 """
 
 from __future__ import annotations
@@ -159,6 +161,22 @@ def generate_vessel_mask(vesselness, brain_mask=None,
     return drop_small_components_native(mask, cfg.min_component_size)
 
 
+def refine_mask_region_grow(vesselness, seed_mask, config=None,
+                            device="cuda"):
+    """Variational refinement of the mask from seeds (C3), on ``device``
+    -> (uint8 mask on the host, RegionGrowResult)."""
+    from .ops.region_grow import region_grow
+
+    cfg = (config or PipelineConfig()).segmentation
+    res = region_grow(torch.as_tensor(vesselness, dtype=torch.float32,
+                                      device=device),
+                      torch.as_tensor(np.asarray(seed_mask, bool),
+                                      device=device),
+                      H=cfg.H, max_segment_size=cfg.max_segment_size,
+                      iter_max=cfg.iter_max, num_bins=cfg.num_bins)
+    return res.segmented_map.cpu().numpy().astype(np.uint8), res
+
+
 def compute_mask_edt(mask):
     """Bounding-box-cropped EDT of the vessel mask (native, host)."""
     from .ops.native import bounding_box, edt_masked_native
@@ -281,14 +299,13 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
     with the intermediate artifacts (host arrays) and per-stage timings.
 
     Entry points: a raw MRA volume (``raw_volume``; vesselness computed
-    on ``device``) or a pre-filtered vesselness volume (``vesselness``)."""
+    on ``device``) or a pre-filtered vesselness volume (``vesselness``).
+    With a ``seed_mask`` the mask is grown from the seeds
+    (``refine_mask_region_grow``) in place of the threshold mask."""
     from .ops.native import (bounding_box, edt_masked_native,
                              skeletonize_native_cropped)
 
     config = config or PipelineConfig()
-    if seed_mask is not None:
-        raise NotImplementedError(
-            "seeded region growing (kernels K2-K6) is not ported yet")
     if config.skeleton.backend == "jax":
         raise NotImplementedError(
             "skeleton.backend='jax' (device thinning) is not ported yet; "
@@ -307,8 +324,12 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
         timings.add("vesselness", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    mask = generate_vessel_mask(vesselness, brain_mask, config,
-                                timings=timings, device=device)
+    if seed_mask is not None:
+        mask, _ = refine_mask_region_grow(vesselness, seed_mask, config,
+                                          device=device)
+    else:
+        mask = generate_vessel_mask(vesselness, brain_mask, config,
+                                    timings=timings, device=device)
     timings.add("segmentation", time.perf_counter() - t0)
 
     # box-coordinate fast path: crop once after the mask, run EDT +

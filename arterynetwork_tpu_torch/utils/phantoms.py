@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/utils/phantoms.py, unchanged.
+# Copy of arterynetwork_tpu/utils/phantoms.py, plus tube_phantom (bench.py).
 """Synthetic vascular phantoms.
 
 The reference validates its voxel kernels on simple phantoms (a bar and a
@@ -153,3 +153,23 @@ def phantom_raw_volume(phantom, background=100.0, noise=4.0,
     raw = rng.normal(background, noise, size=mask.shape).astype(np.float32)
     raw[mask] += vessel_intensity
     return raw
+
+
+def tube_phantom(shape, radius=2, amplitude=0.8, seed=0):
+    """Copy of bench.py's ``_tube_phantom`` (the region-grow bench
+    workload): a noisy volume with a bright square tube winding along the
+    last axis, and a 3x3x3 seed cube on the tube at its middle.  Returns
+    (float32 volume, bool seed mask)."""
+    rng = np.random.default_rng(seed)
+    vol = rng.normal(0.1, 0.03, size=shape).astype(np.float32)
+    z = np.arange(shape[2])
+    cx = (shape[0] // 2 + (shape[0] // 6) * np.sin(z / 18)).astype(int)
+    cy = (shape[1] // 2 + (shape[1] // 6) * np.cos(z / 23)).astype(int)
+    for zz in z:
+        vol[cx[zz] - radius:cx[zz] + radius + 1,
+            cy[zz] - radius:cy[zz] + radius + 1, zz] += amplitude
+    seed_mask = np.zeros(shape, bool)
+    mid = shape[2] // 2
+    seed_mask[cx[mid] - 1:cx[mid] + 2, cy[mid] - 1:cy[mid] + 2,
+              mid - 1:mid + 2] = True
+    return vol, seed_mask

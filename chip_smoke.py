@@ -6,8 +6,9 @@
 Phases, each printing its own lines:
 
   1. device  — the card, and `nvidia-smi --query-gpu=name,power.limit`;
-  2. builds  — the Frangi-response kernel (nvcc, sm_90a) and the native
-               C++ library (g++), both from this checkout's sources;
+  2. builds  — the four CUDA sources (nvcc, sm_90a, all started together:
+               K1, K6, K2, K5) and the native C++ library (g++), from this
+               checkout's sources, with ptxas's register lines;
   3. kernel  — K1 against its plain PyTorch twin on the card, at the main
                path's shapes (a smoothed (68, 512, 170) slab per scale),
                plus a dark and a ragged call; CUDA-event times;
@@ -16,13 +17,31 @@ Phases, each printing its own lines:
   5. pipeline_512 — run_pipeline on the 512x512x170 400-branch phantom
                with bench.py's pipeline_512 configuration: one warm-up
                and three timed runs, 44 kernel launches per run, finite
-               pressures and flows, mask recall >= 0.95.
+               pressures and flows, mask recall >= 0.95;
+  6. region_grow_kernels — K6b, K6a, K2 (and the banded entries K3/K4
+               run on it) and K5 against their plain PyTorch versions on
+               the card, at the region-grow path's shapes (bench.py's
+               512x512x170 tube phantom and its state after 20
+               iterations): equal outputs; CUDA-event times;
+  7. region_grow_512 — bench.py's bench_region_grow workload through
+               region_grow "auto" (K2 + K6b), "xla" (K6b) and
+               region_grow_frontier (K5 + K6b), each also with the plain
+               versions on the card: one (iterations, count) and one mask
+               for all; then "xla" with an excluded slab (K6a);
+  8. seeded_pipeline_512 — run_pipeline(raw_volume, seed_mask) on the
+               pipeline_512 phantom, seeded with the 3x3x3 cube at the
+               tree's root: one warm-up and three timed runs, finite
+               pressures and flows, at least one segment.
 
-Then one JSON line with the kernel's record and, last, the result line
+Each path is driven with every launch count set to 0 just before it and
+read just after.  Then one JSON line with the kernels' records and, last,
+the result line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero before
 the result line; so does a machine without a CUDA device.
 """
 
+import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -31,6 +50,8 @@ import time
 
 K1_TOL = 1e-5          # kernel vs twin, max |d| on responses in [0, 1]
 RECALL_MIN = 0.95
+RG_SHAPE = (512, 512, 170)      # bench.py::bench_region_grow
+RG_KW = {"max_segment_size": 10 ** 6, "iter_max": 300}
 
 
 def log(phase, msg):
@@ -90,12 +111,13 @@ def phase_device():
 
 
 def phase_builds():
-    from arterynetwork_tpu_torch.ops import native, vesselness_fused
+    from arterynetwork_tpu_torch.ops import cuda_build, native
 
-    secs, out = vesselness_fused.build_kernel()
-    regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
-    log("builds", f"frangi_response.cu (nvcc {' '.join(vesselness_fused.NVCC_FLAGS)}): "
-        f"{secs:.2f} s; {'; '.join(regs)}")
+    log("builds", f"nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
+    for name, (secs, out) in cuda_build.build().items():
+        regs = [ln.strip() for ln in out.splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
+        log("builds", f"{name}.cu: done at {secs:.2f} s; {'; '.join(regs)}")
     t0 = time.perf_counter()
     native._build()
     native.get_lib()
@@ -238,6 +260,283 @@ def phase_pipeline(phantom, raw):
     return launches[-1]
 
 
+def _ops(name):
+    return importlib.import_module(f"arterynetwork_tpu_torch.ops.{name}")
+
+
+def counted():
+    """Every kernel wrapper, by kernel name; each holds its launch count."""
+    return {
+        "frangi_response": _ops("vesselness_fused").frangi_response_max_,
+        "masked_histogram1": _ops("histogram_kernels").masked_histogram1,
+        "masked_histograms2": _ops("histogram_kernels").masked_histograms2,
+        "region_grow_sweep": _ops("region_grow_fused").fused_sweep_counts,
+        "region_grow_frontier": _ops("region_grow_frontier").frontier_step,
+    }
+
+
+def reset_counts():
+    for fn in counted().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counted().items()}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the region growers to the kernels' plain versions for CUDA
+    tensors too (the wrappers launch the kernels for every CUDA tensor),
+    by swapping the names the growers call."""
+    hist, hk = _ops("histogram"), _ops("histogram_kernels")
+    fused, front = _ops("region_grow_fused"), _ops("region_grow_frontier")
+
+    def plain1(bins, mask, num_bins=256):
+        return hk.masked_histograms_plain(bins, mask.reshape(1, -1),
+                                          num_bins)[0]
+
+    swaps = [(hist, "masked_histogram1", plain1),
+             (hist, "masked_histograms2", hk.masked_histograms_plain),
+             (fused, "fused_sweep_counts", fused.fused_sweep_plain),
+             (front, "frontier_step", front.frontier_step_plain)]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    try:
+        for m, a, f in swaps:
+            setattr(m, a, f)
+        yield
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+
+
+def _max_err(outs, refs):
+    return max(float((a.double() - b.double()).abs().max()) if a.numel()
+               else 0.0 for a, b in zip(outs, refs))
+
+
+def phase_region_grow_kernels(vol, seed):
+    """Each region-growing kernel against its plain version on the card,
+    at the path's shapes: the tube phantom's bins and its state after 20
+    full-grid iterations.  Integers all: they must agree exactly."""
+    import torch
+    import torch.nn.functional as F
+
+    from arterynetwork_tpu_torch.ops.region_grow import (
+        _bin_ids, _decision_table, _gaussian_kernel, _quantize, region_grow)
+    from arterynetwork_tpu_torch.ops.stencil import dilate26
+
+    hk, fused = _ops("histogram_kernels"), _ops("region_grow_fused")
+    front = _ops("region_grow_frontier")
+    dev = torch.device("cuda")
+    data = torch.from_numpy(vol).to(dev)
+    res = region_grow(data, torch.from_numpy(seed).to(dev), backend="xla",
+                      max_segment_size=10 ** 6, iter_max=20)
+    seg = res.segmented_map
+    idx, values = _quantize(data, 256)
+    bins = _bin_ids(idx, 256).contiguous()
+    flat = bins.reshape(-1)
+    masks = torch.stack([seg.reshape(-1), ~seg.reshape(-1)])
+    K = _gaussian_kernel(values, 2.25, torch.float32)
+    hist_all = hk.masked_histogram1(flat, torch.ones_like(masks[0]))
+    inner = hk.masked_histogram1(flat, masks[0])
+    words = fused.pack_sign_words(_decision_table(K, inner,
+                                                  hist_all - inner))
+    seg8 = seg.to(torch.uint8).contiguous()
+    Z, Y, X = seg8.shape            # pad X to 256 lanes, Y to whole
+    pad = (0, 256 - X, 0, max(-(-Y // 128), 2) * 128 - Y)    # 128-bands
+    seg_p, bins_p = F.pad(seg8, pad), F.pad(bins, pad)
+    valid = tuple(seg8.shape[1:])
+    tile = (8, 16)
+    bnd = dilate26(seg) & dilate26(~seg)
+    active = front._per_tile(bnd, tile) > 0
+    ids = front._compact(active, 256)
+    nact = torch.clamp(active.sum(), max=256).to(torch.int32).reshape(1)
+    log("region_grow_kernels", f"state after {int(res.iterations)} "
+        f"iterations: {int(res.segmented_count)} segmented voxels; "
+        f"{int(nact)} of {active.numel()} tiles active")
+
+    def k6b():
+        return (hk.masked_histogram1(flat, masks[0]),)
+
+    def k6b_plain():
+        return (hk.masked_histograms_plain(flat, masks[:1])[0],)
+
+    def frontier(fn, s):
+        return lambda: (s, *fn(s, bins, ids, nact, words, tile))
+
+    front_a, front_b = seg8.clone(), seg8.clone()
+    cases = {
+        "masked_histogram1": (k6b, k6b_plain),
+        "masked_histograms2": (
+            lambda: (hk.masked_histograms2(flat, masks),),
+            lambda: (hk.masked_histograms_plain(flat, masks),)),
+        "region_grow_sweep": (
+            lambda: fused.fused_sweep_counts(seg8, bins, words),
+            lambda: fused.fused_sweep_plain(seg8, bins, words)),
+        "region_grow_sweep banded (K3)": (
+            lambda: fused.fused_sweep_banded(seg_p, bins_p, words, valid),
+            lambda: fused.fused_sweep(seg_p, bins_p, words, valid)),
+        "region_grow_sweep banded_dma (K4)": (
+            lambda: fused.fused_sweep_banded_dma(seg_p, bins_p, words,
+                                                 valid),
+            lambda: fused.fused_sweep(seg_p, bins_p, words, valid)),
+        "region_grow_frontier": (frontier(front.frontier_step, front_a),
+                                 frontier(front.frontier_step_plain,
+                                          front_b)),
+    }
+    rec = {}
+    for name, (kernel, plain) in cases.items():
+        if "banded" in name:           # compare against the plain sweep
+            with plain_kernels():
+                ref = plain()
+        else:
+            ref = plain()
+        out = kernel()
+        torch.cuda.synchronize()
+        err = _max_err(out, ref)
+        t_k = cuda_ms(kernel)
+        with plain_kernels():
+            t_p = cuda_ms(plain)
+        log("region_grow_kernels", f"{name}: max|d| {err}, kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+        if err != 0:
+            raise SystemExit(f"{name} disagrees with its plain version: "
+                             f"max|d| {err}")
+        rec[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p}
+    return rec
+
+
+def _grow_run(fn):
+    import torch
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counts()
+
+
+def phase_region_grow_512(vol, seed):
+    """bench.py::bench_region_grow on the card: the three growers reach
+    one fixed point, kernels and plain versions alike."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops import (region_grow,
+                                             region_grow_frontier)
+
+    dev = torch.device("cuda")
+    data = torch.from_numpy(vol).to(dev)
+    sd = torch.from_numpy(seed).to(dev)
+    excluded = torch.zeros_like(sd)
+    excluded[:16] = True                       # far from the tube
+    growers = {
+        "auto": (lambda: region_grow(data, sd, **RG_KW),
+                 ("region_grow_sweep", "masked_histogram1")),
+        "xla": (lambda: region_grow(data, sd, backend="xla", **RG_KW),
+                ("masked_histogram1",)),
+        "frontier": (lambda: region_grow_frontier(data, sd, **RG_KW),
+                     ("region_grow_frontier", "masked_histogram1")),
+        "xla excluded": (lambda: region_grow(data, sd, excluded, backend="xla",
+                                             **RG_KW),
+                         ("masked_histograms2",)),
+    }
+    voxels = float(vol.size)
+    results, launches = {}, {}
+    for name, (fn, kernels) in growers.items():
+        fn()                                   # warm-up
+        res, secs, counts = _grow_run(fn)
+        with plain_kernels():
+            ref, p_secs, p_counts = _grow_run(fn)
+        it, n = int(res.iterations), int(res.segmented_count)
+        same = (torch.equal(res.segmented_map, ref.segmented_map)
+                and torch.equal(res.active_map, ref.active_map)
+                and (it, n, int(res.stop_reason))
+                == (int(ref.iterations), int(ref.segmented_count),
+                    int(ref.stop_reason)))
+        used = {k: v for k, v in counts.items() if v}
+        log("region_grow_512", f"{name}: {secs:.4f} s warm, {it} "
+            f"iterations, {n} segmented, stop {int(res.stop_reason)}, "
+            f"{voxels * it / secs:.4e} voxel-sweeps/s; launches {used}; "
+            f"plain versions on the card {p_secs:.4f} s, identical {same}")
+        if not same or any(p_counts.values()):
+            raise SystemExit(f"{name}: kernel and plain runs differ "
+                             f"(plain launches {p_counts})")
+        if not all(counts[k] > 0 for k in kernels):
+            raise SystemExit(f"{name}: expected launches of {kernels}, "
+                             f"got {counts}")
+        results[name], launches[name] = res, counts
+    a = results["auto"]
+    for name in ("xla", "frontier"):
+        r = results[name]
+        if ((int(r.iterations), int(r.segmented_count))
+                != (int(a.iterations), int(a.segmented_count))
+                or not torch.equal(r.segmented_map, a.segmented_map)):
+            raise SystemExit(f"{name} and auto reach different fixed "
+                             f"points")
+    ex = results["xla excluded"]
+    if (ex.segmented_map & excluded).any() or ex.active_map[:16].any() \
+            or not 0 < int(ex.segmented_count) < 10 ** 6:
+        raise SystemExit("the excluded slab entered the region")
+    log("region_grow_512", "auto, xla and frontier: one fixed point; "
+        "the excluded slab stays out")
+    return launches
+
+
+def phase_seeded_pipeline(phantom, raw):
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.pipeline import (refine_mask_region_grow,
+                                                  run_pipeline,
+                                                  vesselness_stage)
+
+    cfg = bench_config()
+    cfg.segmentation.max_segment_size = 10 ** 6
+    seed = np.zeros(raw.shape, bool)
+    seed[tuple(slice(max(c - 1, 0), c + 2) for c in phantom["root"])] = True
+    totals = []
+    for i in range(4):            # run 0 is the warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run_pipeline(raw_volume=raw, seed_mask=seed, config=cfg,
+                              device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+        stages = ", ".join(f"{k} {v:.4f}" for k, v in
+                           result["timings"].items())
+        log("seeded_pipeline_512", f"run {i}{' (warm-up)' if i == 0 else ''}"
+            f": total {total:.4f} s; launches {counts}; stages (s): "
+            f"{stages}")
+        for k in ("frangi_response", "region_grow_sweep",
+                  "masked_histogram1"):
+            if not counts[k] > 0:
+                raise SystemExit(f"seeded run launched no {k}")
+        if i:
+            totals.append(total)
+    v = vesselness_stage(raw, cfg, device="cuda")
+    mask, res = refine_mask_region_grow(v, seed, cfg, device="cuda")
+    sol = result["solution"]
+    finite = bool(torch.isfinite(sol.pressure).all()
+                  and torch.isfinite(sol.flow).all())
+    recall = float(mask[phantom["mask"]].astype(bool).mean())
+    log("seeded_pipeline_512", f"median total "
+        f"{statistics.median(totals):.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in totals)}); region growing "
+        f"{int(res.iterations)} iterations, stop reason "
+        f"{int(res.stop_reason)}; mask voxels {int(mask.sum())}; recall "
+        f"{recall:.4f}; segments {len(result['segments'])}; flow edges "
+        f"{result['network'].num_edges}; pressures/flows finite {finite}")
+    if not np.array_equal(mask, result["mask"]):
+        raise SystemExit("the seeded mask differs between two runs")
+    if not finite or len(result["segments"]) < 1:
+        raise SystemExit("seeded pipeline: no segment or non-finite flow")
+    return counts
+
+
 def main():
     import torch
 
@@ -258,16 +557,37 @@ def main():
     phase_small()
     launches = phase_pipeline(phantom, raw)
 
-    print(json.dumps({"kernels": [{
-        "name": "frangi_response",
-        "route": "cuda",
-        "source": "arterynetwork_tpu_torch/csrc/frangi_response.cu",
+    from arterynetwork_tpu_torch.utils.phantoms import tube_phantom
+
+    vol, seed = tube_phantom(RG_SHAPE)
+    rec = phase_region_grow_kernels(vol, seed)
+    grown = phase_region_grow_512(vol, seed)
+    seeded = phase_seeded_pipeline(phantom, raw)
+
+    csrc = "arterynetwork_tpu_torch/csrc/"
+    kernels = [{
+        "name": "frangi_response", "route": "cuda",
+        "source": csrc + "frangi_response.cu",
         "replaces": "arterynetwork_tpu/ops/vesselness_fused.py:159",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+        "launches": launches, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms}]
+    for name, source, replaces, n in (
+            ("masked_histogram1", "histogram.cu",
+             "arterynetwork_tpu/ops/pallas_kernels.py:124",
+             seeded["masked_histogram1"]),
+            ("masked_histograms2", "histogram.cu",
+             "arterynetwork_tpu/ops/pallas_kernels.py:63",
+             grown["xla excluded"]["masked_histograms2"]),
+            ("region_grow_sweep", "region_grow_sweep.cu",
+             "arterynetwork_tpu/ops/region_grow_fused.py:64",
+             seeded["region_grow_sweep"]),
+            ("region_grow_frontier", "region_grow_frontier.cu",
+             "arterynetwork_tpu/ops/region_grow_frontier.py:100",
+             grown["frontier"]["region_grow_frontier"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + source, "replaces": replaces,
+                        "launches": n, **rec[name]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,11 @@ tree.  Tolerances (values measured on a CPU in brackets):
   * where the masks are equal: identical segments, and pressures and
     flows within 1e-9 relative at f64 [0] and 1e-5 at f32 [flows 1.4e-7].
 
-A last test runs the port in a fresh interpreter in which ``jax`` and
-``networkx`` cannot be imported, as on a machine without either.
+The seeded entry (``seed_mask``: variational region growing in place of
+the threshold mask) is held to the JAX package on tests/test_pipeline.py's
+Y phantom: the same mask and segments, pressures and flows to 1e-9 at
+f64.  A last test runs the port in a fresh interpreter in which ``jax``
+and ``networkx`` cannot be imported, as on a machine without either.
 """
 
 import os
@@ -120,11 +123,50 @@ def test_graph_stage_full_frame_matches_jax():
     assert attrs == ref_attrs
 
 
+def _y_phantom(shape=(48, 48, 64), noise=0.02, seed=0):
+    """tests/test_pipeline.py's Y-shaped bright vessel."""
+    rng = np.random.default_rng(seed)
+    vol = rng.normal(0.05, noise, shape).astype(np.float32)
+    tube = np.zeros(shape, bool)
+    for z in range(8, 34):
+        tube[21:28, 21:28, z] = True
+    for i in range(20):
+        a, b, z = 24 + i // 2, 24 - i // 2, 33 + i
+        tube[a - 2:a + 3, a - 2:a + 3, z] = True
+        tube[b - 2:b + 3, b - 2:b + 3, z] = True
+    vol[tube] = 0.9 + 0.05 * rng.random(tube.sum()).astype(np.float32)
+    return vol
+
+
+def test_seeded_run_pipeline_matches_jax():
+    """tests/test_pipeline.py::test_full_pipeline_on_phantom's setup."""
+    vol = _y_phantom()
+    seed = np.zeros(vol.shape, bool)
+    seed[23:26, 23:26, 18:21] = True
+    cfg = PipelineConfig()
+    cfg.segmentation.max_segment_size = 50000
+    cfg.skeleton.backend = "native"
+    cfg.skeleton.prune_min_length = 4
+    ref = jax_run_pipeline(vol, seed_mask=seed, config=cfg)
+    ref_mask = np.array(ref["mask"])
+    out = run_pipeline(vol, seed_mask=seed,
+                       config=convert.pipeline_config(cfg), device="cpu")
+    assert set(out["timings"]) == set(ref["timings"])
+    np.testing.assert_array_equal(out["mask"], ref_mask)
+    assert out["mask"].sum() > 500
+    assert [list(map(tuple, s)) for s in out["segments"]] == \
+        [list(map(tuple, s)) for s in ref["segments"]]
+    assert len(out["segments"]) >= 3
+    sol, rsol = out["solution"], ref["solution"]
+    assert _rel(sol.pressure.numpy(), np.asarray(rsol.pressure)) <= 1e-9
+    assert _rel(sol.flow.numpy(), np.asarray(rsol.flow)) <= 1e-9
+
+
 def test_unported_paths_raise():
     raw = _raw("tube")
     cfg = convert.pipeline_config(_bench_config("float64"))
     with pytest.raises(NotImplementedError):
-        run_pipeline(raw_volume=raw, seed_mask=np.ones(raw.shape, bool),
+        run_pipeline(raw_volume=raw, brain_mask=np.ones(raw.shape, bool),
                      config=cfg, device="cpu")
     cfg.flow.graph_path = "nx"
     with pytest.raises(NotImplementedError):
@@ -157,6 +199,20 @@ cfg.flow.linear_solver = "auto"
 r = run_pipeline(raw_volume=raw, config=cfg, device="cpu")
 assert r["mask"].sum() > 500 and len(r["segments"]) >= 1
 assert torch.isfinite(r["solution"].pressure).all()
+
+from arterynetwork_tpu_torch.ops import region_grow, region_grow_frontier
+seed = np.zeros(raw.shape, bool)
+seed[19:22, 19:22, 26:29] = True
+cfg.segmentation.max_segment_size = 50000
+s = run_pipeline(raw_volume=raw, seed_mask=seed, config=cfg, device="cpu")
+assert s["mask"].sum() > 500 and len(s["segments"]) >= 1
+assert torch.isfinite(s["solution"].pressure).all()
+v = (raw - raw.min()) / np.ptp(raw)
+grown = [region_grow(v, seed, backend=b, max_segment_size=50000)
+         for b in ("xla", "fused")]
+grown.append(region_grow_frontier(v, seed, max_segment_size=50000))
+assert all(torch.equal(g.segmented_map, grown[0].segmented_map)
+           for g in grown) and int(grown[0].segmented_count) > 500
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "networkx", "arterynetwork_tpu")
             and sys.modules[m] is not None]
