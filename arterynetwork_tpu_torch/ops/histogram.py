@@ -6,7 +6,8 @@ sign words on the TPU, where scatters and gathers are slow; scatter-add
 elsewhere).  Those TPU workarounds give exact results, so the port drops
 them: histograms go to the K6 kernels on CUDA tensors and to
 ``torch.bincount`` on CPU tensors (ops/histogram_kernels.py), and the
-lookups are plain gathers.  Counts are exact int32 cast to f32 once; the
+lookups to the K7 kernel on CUDA tensors and to a gather on CPU tensors
+(ops/lookup_kernels.py).  Counts are exact int32 cast to f32 once; the
 JAX CPU path and the TPU kernels count in f32 and so stop counting
 exactly at 2^24 per bin (ROADMAP.md, queue 3).
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .histogram_kernels import masked_histogram1, masked_histograms2
+from .lookup_kernels import sign_lookup, table_lookup  # noqa: F401
 
 
 def masked_histograms(bin_idx_flat, masks_flat, num_bins: int = 256):
@@ -40,13 +42,3 @@ masked_histograms_best = masked_histograms
 def masked_histogram_one(bin_idx_flat, mask_flat, num_bins: int = 256):
     """Single-mask histogram -> f32[num_bins]."""
     return masked_histogram1(bin_idx_flat, mask_flat, num_bins)
-
-
-def table_lookup(bin_idx, table):
-    """``table[bin_idx]`` elementwise (a gather)."""
-    return table[bin_idx.long()]
-
-
-def sign_lookup(bin_idx, table):
-    """``table[bin_idx] >= 0`` elementwise."""
-    return table_lookup(bin_idx, table) >= 0

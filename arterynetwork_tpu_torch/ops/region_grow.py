@@ -22,8 +22,12 @@ the stop code from the device once per iteration.
 ``backend``: "auto" takes the fused sweep (ops/region_grow_fused.py, the
 K2 kernel) for a CUDA tensor with no excluded mask and 256 bins, at any
 shape; otherwise, and always on the CPU, the full-grid path
-``_region_grow_xla`` (its histograms go to the K6 kernels on CUDA).
-"xla" and "fused" force one or the other.
+``_region_grow_xla`` (on CUDA its histograms go to the K6 kernels and its
+sign lookup to K7).  "xla" and "fused" force one or the other.
+
+Every entry runs on the card by default: host arrays go to "cuda" unless
+``device`` says otherwise, and a tensor stays on its own device (a CPU
+tensor is the caller asking for the CPU).
 """
 
 from __future__ import annotations
@@ -103,9 +107,10 @@ def _as_device(x, device, dtype=None):
 
 
 def _resolve_device(data, device):
+    """``device`` if given, else the device of a tensor, else the card."""
     if device is not None:
         return torch.device(device)
-    return data.device if torch.is_tensor(data) else torch.device("cpu")
+    return data.device if torch.is_tensor(data) else torch.device("cuda")
 
 
 def region_grow(data, seed_mask, excluded_mask=None, H: float = DEFAULT_H,
@@ -113,7 +118,7 @@ def region_grow(data, seed_mask, excluded_mask=None, H: float = DEFAULT_H,
                 iter_max: int = DEFAULT_ITER_MAX, num_bins: int = 256,
                 backend: str = "auto", device=None) -> RegionGrowResult:
     """Grow a region from ``seed_mask`` over ``data`` on ``device`` (by
-    default the device of ``data``; host arrays go to the CPU).
+    default the device of a ``data`` tensor; host arrays go to the card).
 
     Parameters mirror the reference: ``H`` controls segmentation size
     (larger H -> smaller segmentation), ``max_segment_size`` and
@@ -138,7 +143,7 @@ def region_grow(data, seed_mask, excluded_mask=None, H: float = DEFAULT_H,
         from .region_grow_fused import region_grow_fused
         return region_grow_fused(data, seed_mask, H=H,
                                  max_segment_size=max_segment_size,
-                                 iter_max=iter_max)
+                                 iter_max=iter_max, device=device)
     return _region_grow_xla(data, seed_mask, excluded_mask, H,
                             max_segment_size, iter_max, num_bins)
 
@@ -224,32 +229,36 @@ def _region_grow_xla(data, seed_mask, excluded_mask=None,
 def region_grow_value_map(data, value_map, H=DEFAULT_H,
                           max_segment_size=DEFAULT_MAX_SEGMENT_SIZE,
                           iter_max=DEFAULT_ITER_MAX, num_bins=256,
-                          device="cpu"):
+                          device="cuda"):
     """Drop-in equivalent of ``variationalRegionGrowing(dataArray,
-    valueMap)``.
+    valueMap)``, on ``device`` (the card unless the caller asks for the
+    CPU).
 
     ``value_map`` uses the reference encoding — 0: inside, 1: inner
     boundary, 2: outer boundary, 3: outside, 4: excluded — and the
     function returns ``(segmented_coords, segmented_map, value_map)``
     like the reference (variationalRegionGrowing.py:27-36), as numpy."""
-    value_map = np.asarray(value_map)
-    seed = (value_map == 0) | (value_map == 1)
-    excluded = value_map == 4
-    res = region_grow(np.asarray(data), seed, excluded, H=H,
+    vm_in = _as_device(value_map, device)
+    res = region_grow(data, (vm_in == 0) | (vm_in == 1), vm_in == 4, H=H,
                       max_segment_size=max_segment_size, iter_max=iter_max,
                       num_bins=num_bins, device=device)
+    vm = reconstruct_value_map(res.segmented_map, res.active_map, device)
     seg = res.segmented_map.cpu().numpy()
-    vm = reconstruct_value_map(seg, res.active_map.cpu().numpy())
     return np.argwhere(seg), seg.astype(np.int64), vm
 
 
-def reconstruct_value_map(seg, active):
-    """Rebuild the reference's 5-state valueMap from the two masks."""
-    seg_t = torch.as_tensor(np.asarray(seg, bool))
-    active_t = torch.as_tensor(np.asarray(active, bool))
+def reconstruct_value_map(seg, active, device=None):
+    """Rebuild the reference's 5-state valueMap from the two masks, on
+    ``device`` (by default the device of a ``seg`` tensor, else the
+    card) -> numpy int64."""
+    device = _resolve_device(seg, device)
+    seg_t = _as_device(seg, device, torch.bool)
+    active_t = _as_device(active, device, torch.bool)
     inner_bnd = seg_t & dilate26(~seg_t)
     outer_bnd = (~seg_t) & active_t & dilate26(seg_t)
-    vm = torch.where(seg_t, torch.where(inner_bnd, 1, 0),
+    # built in uint8 on the device (4 - active: 3 where active, else 4),
+    # widened to int64 on the host
+    vm = torch.where(seg_t, inner_bnd.to(torch.uint8),
                      torch.where(outer_bnd, 2,
-                                 torch.where(active_t, 3, 4)))
-    return vm.numpy().astype(np.int64)
+                                 4 - active_t.to(torch.uint8)))
+    return vm.cpu().numpy().astype(np.int64)

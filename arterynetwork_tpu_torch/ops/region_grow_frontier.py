@@ -177,8 +177,8 @@ def region_grow_frontier(data, seed_mask, H: float = DEFAULT_H,
                          device=None) -> RegionGrowResult:
     """Frontier-tile region growing (same fixed point and trajectory as
     ``region_grow`` with ``excluded_mask=None``) on ``device`` (by
-    default the device of ``data``).  Always f32, as the JAX grower
-    traces under x32."""
+    default the device of a ``data`` tensor; host arrays go to the
+    card).  Always f32, as the JAX grower traces under x32."""
     if num_bins % 32 or not 32 <= num_bins <= 256:
         raise ValueError("num_bins must be a multiple of 32, at most 256")
     device = _resolve_device(data, device)

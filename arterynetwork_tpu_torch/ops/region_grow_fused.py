@@ -34,8 +34,9 @@ from . import cuda_build
 from .histogram import masked_histogram_one
 from .region_grow import (DEFAULT_H, DEFAULT_ITER_MAX,
                           DEFAULT_MAX_SEGMENT_SIZE, RegionGrowResult,
-                          _bin_ids, _decision_table, _gaussian_kernel,
-                          _quantize, _stop_code)
+                          _as_device, _bin_ids, _decision_table,
+                          _gaussian_kernel, _quantize, _resolve_device,
+                          _stop_code)
 from .stencil import dilate26
 
 NUM_BINS = 256
@@ -174,12 +175,15 @@ def fused_sweep_banded_dma(seg_t, idx_t, sign_words, valid_yx=None,
 
 def region_grow_fused(data, seed_mask, H: float = DEFAULT_H,
                       max_segment_size: int = DEFAULT_MAX_SEGMENT_SIZE,
-                      iter_max: int = DEFAULT_ITER_MAX) -> RegionGrowResult:
+                      iter_max: int = DEFAULT_ITER_MAX,
+                      device=None) -> RegionGrowResult:
     """Full-grid region growing with the fused sweep (same fixed point as
-    the full-grid path with ``excluded_mask=None``, 256 bins), on the
-    device of ``data``.  Always f32, as the JAX grower traces under x32."""
-    data = data.to(torch.float32)
-    seg0 = seed_mask.to(torch.bool)
+    the full-grid path with ``excluded_mask=None``, 256 bins), on
+    ``device`` (by default the device of a ``data`` tensor; host arrays go
+    to the card).  Always f32, as the JAX grower traces under x32."""
+    device = _resolve_device(data, device)
+    data = _as_device(data, device).to(torch.float32)
+    seg0 = _as_device(seed_mask, device, torch.bool)
 
     bin_idx, bin_values = _quantize(data, NUM_BINS)
     bins = _bin_ids(bin_idx, NUM_BINS).contiguous()

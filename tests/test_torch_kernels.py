@@ -128,7 +128,7 @@ def _grow_state(shape=(40, 36, 50), iters=6, device="cpu"):
     full-grid iterations (a front with flips in both directions)."""
     vol, seed = tube_phantom(shape, seed=2)
     res = region_grow(vol, seed, backend="xla", iter_max=iters,
-                      max_segment_size=10 ** 6)
+                      max_segment_size=10 ** 6, device="cpu")
     idx, _ = _quantize(torch.from_numpy(vol), 256)
     bins = _bin_ids(idx, 256).contiguous()
     seg = res.segmented_map

@@ -208,9 +208,10 @@ s = run_pipeline(raw_volume=raw, seed_mask=seed, config=cfg, device="cpu")
 assert s["mask"].sum() > 500 and len(s["segments"]) >= 1
 assert torch.isfinite(s["solution"].pressure).all()
 v = (raw - raw.min()) / np.ptp(raw)
-grown = [region_grow(v, seed, backend=b, max_segment_size=50000)
-         for b in ("xla", "fused")]
-grown.append(region_grow_frontier(v, seed, max_segment_size=50000))
+grown = [region_grow(v, seed, backend=b, max_segment_size=50000,
+                     device="cpu") for b in ("xla", "fused")]
+grown.append(region_grow_frontier(v, seed, max_segment_size=50000,
+                                  device="cpu"))
 assert all(torch.equal(g.segmented_map, grown[0].segmented_map)
            for g in grown) and int(grown[0].segmented_count) > 500
 assert not [m for m in sys.modules

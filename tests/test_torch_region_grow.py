@@ -278,7 +278,7 @@ def test_frontier_trajectory_matches_interpret(iters, k_max, shape, nb):
               k_max=k_max, nb=nb)
     ref = j_frontier(jnp.asarray(vol), jnp.asarray(seed), interpret=True,
                      **kw)
-    out = region_grow_frontier(vol, seed, **kw)
+    out = region_grow_frontier(vol, seed, device="cpu", **kw)
     _same_result(out, ref)
 
 
@@ -287,7 +287,7 @@ def test_frontier_size_cap_matches_interpret():
     kw = dict(max_segment_size=64, iter_max=100, tile=(8, 16), k_max=16)
     ref = j_frontier(jnp.asarray(vol), jnp.asarray(seed), interpret=True,
                      **kw)
-    out = region_grow_frontier(vol, seed, **kw)
+    out = region_grow_frontier(vol, seed, device="cpu", **kw)
     assert int(out.stop_reason) == 1
     _same_result(out, ref)
 
@@ -348,9 +348,9 @@ def test_growers_match_jax_xla(name, backend):
     if backend == "fused" and ("excluded_mask" in kw
                                or kw.get("num_bins", 256) != 256):
         with pytest.raises(ValueError):
-            region_grow(vol, seed, backend="fused", **kw)
+            region_grow(vol, seed, backend="fused", device="cpu", **kw)
         return
-    out = region_grow(vol, seed, backend=backend, **kw)
+    out = region_grow(vol, seed, backend=backend, device="cpu", **kw)
     _same_result(out, ref)
     if name == "excluded":
         assert not out.active_map[:2].any()
@@ -360,13 +360,14 @@ def test_f64_data_stays_f64_and_matches_jax():
     vol, seed, kw = _fixture("H_2.25_256")
     vol = vol.astype(np.float64)
     ref = _jax_xla(vol, seed, kw)
-    _same_result(region_grow(vol, seed, backend="xla", **kw), ref)
+    _same_result(region_grow(vol, seed, backend="xla", device="cpu", **kw),
+                 ref)
 
 
 def test_auto_takes_xla_on_cpu():
     vol, seed, _ = _fixture("line")
     n0 = tfused.fused_sweep_counts.launches
-    out = region_grow(vol, seed)
+    out = region_grow(vol, seed, device="cpu")
     assert tfused.fused_sweep_counts.launches == n0
     _same_result(out, _jax_xla(vol, seed, {}))
 
@@ -382,9 +383,11 @@ def test_growers_match_reference_oracle():
     seed = np.zeros(vol.shape, bool)
     seed[7, 7, 14:18] = True
     ref_seg, _, _ = reference_region_grow(vol, seed)
-    outs = [region_grow(vol, seed, num_bins=1024, backend="xla"),
-            region_grow(vol, seed, backend="fused"),
-            region_grow_frontier(vol, seed, tile=(8, 16), k_max=4)]
+    outs = [region_grow(vol, seed, num_bins=1024, backend="xla",
+                        device="cpu"),
+            region_grow(vol, seed, backend="fused", device="cpu"),
+            region_grow_frontier(vol, seed, tile=(8, 16), k_max=4,
+                                 device="cpu")]
     for out in outs:
         np.testing.assert_array_equal(out.segmented_map.numpy(), ref_seg)
 
@@ -396,7 +399,7 @@ def test_tube_phantom_signs_and_fixed_point():
     vol, seed = tube_phantom((48, 48, 48))
     ref = _region_grow_xla(jnp.asarray(vol), jnp.asarray(seed),
                            max_segment_size=10 ** 6, iter_max=300)
-    kw = dict(max_segment_size=10 ** 6, iter_max=300)
+    kw = dict(max_segment_size=10 ** 6, iter_max=300, device="cpu")
     for out in (region_grow(vol, seed, backend="xla", **kw),
                 region_grow(vol, seed, backend="fused", **kw),
                 region_grow_frontier(vol, seed, **kw)):
@@ -437,7 +440,8 @@ def test_continue_from_jax_mid_trajectory():
         device="cpu")
     assert int(mid.iterations) == 6 and int(mid.stop_reason) == 2
     for backend in ("xla", "fused"):
-        out = region_grow(vol, mid.segmented_map, backend=backend, **kw)
+        out = region_grow(vol, mid.segmented_map, backend=backend,
+                          device="cpu", **kw)
         np.testing.assert_array_equal(out.segmented_map.numpy(),
                                       np.asarray(full.segmented_map))
         assert int(out.iterations) + 6 == int(full.iterations)
@@ -454,7 +458,7 @@ def test_value_map_round_trip_matches_jax():
     value_map[8:10, 8:10, 15:18] = 0
     value_map[:, :, :2] = 4                   # excluded slab
     ref = j_value_map(volume, value_map)
-    out = region_grow_value_map(volume, value_map)
+    out = region_grow_value_map(volume, value_map, device="cpu")
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a, np.asarray(b))
     coords, seg_map, vm = out
@@ -462,4 +466,5 @@ def test_value_map_round_trip_matches_jax():
     assert np.all(vm[volume.astype(bool)] == 1)
     # the map rebuilt from its own masks is the map
     np.testing.assert_array_equal(
-        reconstruct_value_map(seg_map.astype(bool), vm != 4), vm)
+        reconstruct_value_map(seg_map.astype(bool), vm != 4, device="cpu"),
+        vm)
