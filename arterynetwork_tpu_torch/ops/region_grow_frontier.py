@@ -17,13 +17,14 @@ the tiles that can change:
 
 ``frontier_step`` is the kernel's wrapper: CUDA tensors launch
 ``csrc/region_grow_frontier.cu`` (a snapshot of the active tiles' halo
-boxes, then the sweep, so tiles never see each other's writes of the
-same iteration), CPU tensors run ``frontier_step_plain``;
+boxes as bit words, then the sweep, so tiles never see each other's
+writes of the same iteration), CPU tensors run ``frontier_step_plain``;
 ``frontier_step.launches`` counts launches.  The JAX package's packed
 geometry word and 8/128 padding are TPU layout workarounds; the port
 keeps seg and bins as uint8 (Z, Y, X) volumes and masks the volume's
-faces by coordinates.  ``nb`` tiles go to one CUDA block (the JAX
-package batches ``nb`` tiles per grid step); it does not change results.
+faces by coordinates.  A CUDA block sweeps one plane of ``nb`` tiles in
+turn (the JAX package batches ``nb`` tiles per grid step); it does not
+change results.
 """
 
 from __future__ import annotations
@@ -136,8 +137,8 @@ def frontier_step(seg, bins, ids, nact, words, tile, nb=1):
     TZ, TY = tile
     k_pad = ids.shape[0]
     dev = seg.device
-    snap = torch.empty((k_pad, (TZ + 2) * (TY + 2) * (X + 2)),
-                       dtype=torch.uint8, device=dev)
+    snap = torch.empty((k_pad, (TZ + 2) * 2 * (TY + 2) * -(-X // 32)),
+                       dtype=torch.int32, device=dev)
     dhist = torch.zeros(256, dtype=torch.int32, device=dev)
     flags = torch.zeros((k_pad, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):

@@ -19,23 +19,33 @@ Phases, each printing its own lines:
                with bench.py's pipeline_512 configuration: one warm-up
                and three timed runs, 44 kernel launches per run, finite
                pressures and flows, mask recall >= 0.95;
-  6. region_grow_kernels — K6b, K6a, K2 (and the banded entries K3/K4
+  6. sweep_cases — K2 (through fused_sweep_counts and the padded entries
+               fused_sweep, fused_sweep_banded, fused_sweep_banded_dma)
+               and K5 against their plain versions on hard inputs:
+               Bernoulli(0.5) states with random decision words, all-
+               and none-segmented volumes, ragged shapes, padded calls,
+               a view not on a 16-byte boundary; K5 with ragged last
+               tiles, nact < k_pad, nact = 0, nb 1 and 3.  Exact;
+  7. region_grow_kernels — K6b, K6a, K2 (and the banded entries K3/K4
                run on it), K5 and K7 (values and sign modes) against their
                plain PyTorch versions on the card, at the region-grow
                path's shapes (bench.py's 512x512x170 tube phantom and its
                state after 20 iterations): equal outputs; device and call
                times of kernel, plain version and, where one PyTorch call
                computes the same function, that call; each kernel's bound;
-  7. region_grow_512 — bench.py's bench_region_grow workload through
+               K5's fixed cost (no tile active);
+  8. region_grow_512 — bench.py's bench_region_grow workload through
                region_grow "auto" (K2 + K6b), "xla" (K6b + K7) and
                region_grow_frontier (K5 + K6b), each also with the plain
                versions on the card: one (iterations, count) and one mask
                for all; then "xla" with an excluded slab (K6a + K7);
-  8. value_map_512 — the reference's interface, region_grow_value_map,
+               one traced run each of "auto" and "frontier" for the
+               device's idle share;
+  9. value_map_512 — the reference's interface, region_grow_value_map,
                on the tube with the excluded slab as state 4: one warm-up
                and three timed runs (K6a + K7 per iteration, the value map
                rebuilt on the card), equal to the "xla" excluded grower;
-  9. seeded_pipeline_512 — run_pipeline(raw_volume, seed_mask) on the
+ 10. seeded_pipeline_512 — run_pipeline(raw_volume, seed_mask) on the
                pipeline_512 phantom, seeded with the 3x3x3 cube at the
                tree's root: one warm-up and three timed runs, finite
                pressures and flows, at least one segment.
@@ -441,6 +451,105 @@ def _frontier_bytes(ids, nact, shape, tile, n_bnd):
     return total
 
 
+def phase_sweep_cases():
+    """K2 (through all its entries) and K5 against their plain versions
+    on the card, exactly, on inputs the path's state does not reach:
+    Bernoulli(0.5) states with random decision words (almost every voxel
+    on the boundary, many flips, every bin), all-segmented and
+    all-unsegmented volumes, ragged shapes, padded ``valid_yx`` calls,
+    and for K5 ragged last tiles, nact < k_pad, nact = 0 and nb 1 and
+    3."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    fused, front = _ops("region_grow_fused"), _ops("region_grow_frontier")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+
+    def state(shape, kind="half", n_words=8):
+        bins = rng.integers(0, 32 * n_words, shape).astype(np.uint8)
+        seg = {"half": lambda: rng.random(shape) < 0.5,
+               "all": lambda: np.ones(shape, bool),
+               "none": lambda: np.zeros(shape, bool)}[kind]()
+        words = rng.integers(-2 ** 31, 2 ** 31, n_words).astype(np.int32)
+        return (torch.from_numpy(seg.astype(np.uint8)).to(dev),
+                torch.from_numpy(bins).to(dev), torch.from_numpy(words).to(dev))
+
+    def same(label, out, ref):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise SystemExit(f"sweep_cases: {label} differs from the plain "
+                             f"version (max|d| {_max_err(out, ref)})")
+
+    flips, n = 0, 0
+    sweeps = [(RG_SHAPE, k) for k in ("half", "all", "none")]
+    sweeps += [((z, y, x), "half") for z in (1, 2, 17) for y in (1, 3, 17)
+               for x in (1, 31, 33, 170, 513)]
+    sweeps += [((17, 17, x), k) for x in (33, 513) for k in ("all", "none")]
+    for shape, kind in sweeps:
+        seg, bins, words = state(shape, kind)
+        ref = fused.fused_sweep_plain(seg, bins, words)
+        same(f"K2 {kind} {shape}", fused.fused_sweep_counts(seg, bins, words),
+             ref)
+        flips += int(ref[1].sum())
+        n += 1
+    # padded (Z, Yp, Xp) volumes with band 16 through the three entries
+    for (z, y0, x0), (yp, xp) in (((17, 100, 170), (112, 256)),
+                                  ((5, 17, 33), (32, 128)),
+                                  ((3, 20, 1), (48, 128))):
+        seg, bins, words = state((z, y0, x0))
+        pad = (0, xp - x0, 0, yp - y0)
+        seg_p, bins_p = F.pad(seg, pad), F.pad(bins, pad)
+        s, dh = fused.fused_sweep_plain(seg_p, bins_p, words, (y0, x0))
+        ref = (s, *fused._hist16(dh))
+        for entry, kw in (("fused_sweep", {}),
+                          ("fused_sweep_banded", {"band": 16}),
+                          ("fused_sweep_banded_dma", {"band": 16})):
+            same(f"{entry} {(z, yp, xp)} valid {(y0, x0)}",
+                 getattr(fused, entry)(seg_p, bins_p, words, (y0, x0), **kw),
+                 ref)
+            n += 1
+    # a view whose data does not start on a 16-byte boundary
+    seg, bins, words = state((18, 17, 170))
+    view = (seg[1:], bins[1:], words)
+    same("K2 on an unaligned view", fused.fused_sweep_counts(*view),
+         fused.fused_sweep_plain(*view))
+    n += 1
+    log("sweep_cases", f"K2: {n} calls equal to the plain version "
+        f"({len(sweeps)} shapes, 9 padded entry calls, one unaligned view; "
+        f"{flips} flips in the unpadded calls)")
+
+    tile, m, flips = (8, 16), 0, 0
+    for shape, kind, n_words in (((20, 45, 170), "half", 8),
+                                 ((17, 37, 513), "half", 8),
+                                 ((9, 17, 33), "half", 2),
+                                 ((12, 33, 31), "all", 8),
+                                 ((12, 33, 31), "none", 8),
+                                 ((64, 128, 170), "half", 8)):
+        seg, bins, words = state(shape, kind, n_words)
+        ntz, nty = front._tile_grid(shape, tile)
+        nt = ntz * nty
+        for k_pad, nact in ((nt, nt), (nt + 5, nt - 1), (max(nt // 2, 1), 1),
+                            (nt, 0)):
+            ids = torch.zeros(k_pad, dtype=torch.int32)
+            perm = rng.permutation(nt)[:k_pad]
+            ids[:len(perm)] = torch.from_numpy(perm.astype(np.int32))
+            ids = ids.to(dev)
+            na = torch.tensor([nact], dtype=torch.int32, device=dev)
+            for nb in (1, 3):
+                a, b = seg.clone(), seg.clone()
+                ref = front.frontier_step_plain(a, bins, ids, na, words,
+                                                tile, nb)
+                out = front.frontier_step(b, bins, ids, na, words, tile, nb)
+                same(f"K5 {kind} {shape} k_pad {k_pad} nact {nact} nb {nb}",
+                     (b, *out), (a, *ref))
+                flips += int(ref[1][:, 0].sum())
+                m += 1
+    log("sweep_cases", f"K5: {m} calls equal to the plain version (seg, "
+        f"dhist and flags; {flips} flips)")
+
+
 def phase_region_grow_kernels(vol, seed):
     """Each region-growing kernel against its plain version on the card,
     at the path's shapes: the tube phantom's bins and its state after 20
@@ -566,7 +675,45 @@ def phase_region_grow_kernels(vol, seed):
             raise SystemExit(f"{name} disagrees with its plain version: "
                              f"max|d| {err}")
         rec[name] = r
+    # K5's floor: both kernels launched, no tile active
+    none = torch.zeros(1, dtype=torch.int32, device=dev)
+    m0 = measure(lambda: front.frontier_step(front_a, bins, ids, none, words,
+                                             tile), own=True)
+    r = rec["region_grow_frontier"]
+    r["nact0_ms"], r["nact0_call_ms"] = m0[0], m0[1]
+    log("region_grow_kernels", f"region_grow_frontier fixed cost (nact = "
+        f"0, both kernels launched): {_ms(m0[0])} ms on the device "
+        f"({m0[1]:.4f} per call), against {r['ms']:.4f} ms at {int(nact)} "
+        f"tiles; device events in 10 calls: {'; '.join(m0[2])}")
     return rec
+
+
+def device_idle(fn):
+    """(wall s, device-busy s, idle share) of one run of ``fn`` traced by
+    torch.profiler: busy is the union of the device events' intervals,
+    wall the host clock around the traced run (the tracer's own host cost
+    included, so the share is an upper bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Activity Buffer Request")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                 # microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e6, 1 - busy / 1e6 / wall
 
 
 def _grow_run(fn):
@@ -635,6 +782,10 @@ def phase_region_grow_512(vol, seed):
             raise SystemExit(f"{name}: {counts['sign_lookup']} K7 launches "
                              f"for {passes} passes")
         results[name], launches[name] = res, counts
+        if name in ("auto", "frontier"):
+            wall, busy, idle = device_idle(fn)
+            log("region_grow_512", f"{name} traced by torch.profiler: "
+                f"{wall:.4f} s, device busy {busy:.4f} s, idle {idle:.1%}")
     a = results["auto"]
     for name in ("xla", "frontier"):
         r = results[name]
@@ -744,7 +895,7 @@ def phase_seeded_pipeline(phantom, raw):
     cfg.segmentation.max_segment_size = 10 ** 6
     seed = np.zeros(raw.shape, bool)
     seed[tuple(slice(max(c - 1, 0), c + 2) for c in phantom["root"])] = True
-    totals = []
+    totals, seg_s = [], []
     for i in range(4):            # run 0 is the warm-up
         reset_counts()
         torch.cuda.synchronize()
@@ -765,6 +916,7 @@ def phase_seeded_pipeline(phantom, raw):
                 raise SystemExit(f"seeded run launched no {k}")
         if i:
             totals.append(total)
+            seg_s.append(result["timings"]["segmentation"])
     v = vesselness_stage(raw, cfg, device="cuda")
     mask, res = refine_mask_region_grow(v, seed, cfg, device="cuda")
     sol = result["solution"]
@@ -773,7 +925,8 @@ def phase_seeded_pipeline(phantom, raw):
     recall = float(mask[phantom["mask"]].astype(bool).mean())
     log("seeded_pipeline_512", f"median total "
         f"{statistics.median(totals):.4f} s (runs "
-        f"{', '.join(f'{t:.4f}' for t in totals)}); region growing "
+        f"{', '.join(f'{t:.4f}' for t in totals)}); segmentation stage "
+        f"median {statistics.median(seg_s):.4f} s; region growing "
         f"{int(res.iterations)} iterations, stop reason "
         f"{int(res.stop_reason)}; mask voxels {int(mask.sum())}; recall "
         f"{recall:.4f}; segments {len(result['segments'])}; flow edges "
@@ -808,6 +961,7 @@ def main():
     from arterynetwork_tpu_torch.utils.phantoms import tube_phantom
 
     vol, seed = tube_phantom(RG_SHAPE)
+    phase_sweep_cases()
     rec = phase_region_grow_kernels(vol, seed)
     grown, ex = phase_region_grow_512(vol, seed)
     vmap = phase_value_map(vol, seed, ex)

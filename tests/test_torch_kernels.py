@@ -158,27 +158,69 @@ def test_histogram_kernels_match_plain(cuda, n):
         (n1 + 2, n2 + 1)
 
 
+def _random_state(shape, kind, n_words=8, seed=0, device="cpu"):
+    """bins, uint8 seg and decision words of a state the path does not
+    reach: Bernoulli(0.5) ("half"; almost every voxel on the boundary,
+    many flips, every bin), all segmented ("all") or none ("none"), with
+    random words."""
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, 32 * n_words, shape).astype(np.uint8)
+    seg = {"half": rng.random(shape) < 0.5, "all": np.ones(shape, bool),
+           "none": np.zeros(shape, bool)}[kind]
+    words = rng.integers(-2 ** 31, 2 ** 31, n_words).astype(np.int32)
+    return (torch.from_numpy(bins).to(device),
+            torch.from_numpy(seg.astype(np.uint8)).to(device),
+            torch.from_numpy(words).to(device))
+
+
+_RAGGED = [(z, y, x) for z in (1, 2, 17) for y in (1, 3, 17)
+           for x in (1, 31, 33, 170, 513)]
+
+
 @pytest.mark.gpu
-def test_sweep_kernel_matches_plain(cuda):
-    bins, seg, words = _grow_state(device=cuda)
-    seg = seg.to(torch.uint8)
+@pytest.mark.parametrize("shape,kind", [((40, 36, 50), "grow")]
+                         + [((17, 17, 170), k) for k in ("half", "all",
+                                                         "none")]
+                         + [(s, "half") for s in _RAGGED]
+                         + [((18, 17, 170), "view")])
+def test_sweep_kernel_matches_plain(cuda, shape, kind):
+    if kind == "grow":
+        bins, seg, words = _grow_state(shape, device=cuda)
+        seg = seg.to(torch.uint8)
+    elif kind == "view":       # data not on a 16-byte boundary
+        bins, seg, words = _random_state(shape, "half", device=cuda)
+        bins, seg = bins[1:], seg[1:]
+        assert seg.data_ptr() % 16
+    else:
+        bins, seg, words = _random_state(shape, kind, seed=sum(shape),
+                                         device=cuda)
     ref = rgx.fused_sweep_plain(seg, bins, words)
     n0 = rgx.fused_sweep_counts.launches
     out = rgx.fused_sweep_counts(seg, bins, words)
     torch.cuda.synchronize()
     assert rgx.fused_sweep_counts.launches == n0 + 1
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
-    assert int(ref[1].sum()) > 0
+    if kind != "all" and kind != "none" and seg.numel() > 1000:
+        assert int(ref[1].sum()) > 0
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("entry", ["fused_sweep", "fused_sweep_banded",
                                    "fused_sweep_banded_dma"])
-def test_padded_sweep_entries_match_plain(cuda, entry):
-    bins, seg, words = _grow_state(device=cuda)
+@pytest.mark.parametrize("kind,valid,padded", [
+    ("grow", None, (48, 64)),
+    ("half", (17, 33), (32, 128)),
+    ("half", (20, 1), (48, 128)),
+    ("half", (100, 170), (112, 256))])
+def test_padded_sweep_entries_match_plain(cuda, entry, kind, valid, padded):
+    if kind == "grow":
+        bins, seg, words = _grow_state(device=cuda)
+        seg = seg.to(torch.uint8)
+    else:
+        bins, seg, words = _random_state((5,) + valid, kind, device=cuda)
     Z, Y0, X0 = seg.shape
-    pad = (0, 64 - X0, 0, 48 - Y0)
-    seg_p = torch.nn.functional.pad(seg.to(torch.uint8), pad).contiguous()
+    pad = (0, padded[1] - X0, 0, padded[0] - Y0)
+    seg_p = torch.nn.functional.pad(seg, pad).contiguous()
     bins_p = torch.nn.functional.pad(bins, pad).contiguous()
     kw = {"band": 16} if entry != "fused_sweep" else {}
     out = getattr(rgx, entry)(seg_p, bins_p, words, valid_yx=(Y0, X0),
@@ -210,6 +252,37 @@ def test_frontier_kernel_matches_plain(cuda, k_max, nb):
     assert torch.equal(a, b)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     assert int(ref[1][:, 0].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind,n_words", [
+    ((20, 45, 170), "half", 8),        # ragged last tiles in z and y
+    ((17, 37, 513), "half", 8),
+    ((9, 17, 33), "half", 2),          # 64 bins
+    ((12, 33, 31), "all", 8),
+    ((12, 33, 31), "none", 8)])
+@pytest.mark.parametrize("slots", ["all", "fewer", "one", "none"])
+@pytest.mark.parametrize("nb", [1, 3])
+def test_frontier_kernel_matches_plain_on_hard_states(cuda, shape, kind,
+                                                      n_words, slots, nb):
+    bins, seg, words = _random_state(shape, kind, n_words, seed=nb,
+                                     device=cuda)
+    tile = (8, 16)
+    ntz, nty = _tile_grid(shape, tile)
+    nt = ntz * nty
+    k_pad, nact = {"all": (nt, nt), "fewer": (nt + 5, nt - 1),
+                   "one": (max(nt // 2, 1), 1), "none": (nt, 0)}[slots]
+    perm = np.random.default_rng(nt).permutation(nt)[:k_pad]
+    ids = torch.zeros(k_pad, dtype=torch.int32)
+    ids[:len(perm)] = torch.from_numpy(perm.astype(np.int32))
+    ids = ids.to(cuda)
+    na = torch.tensor([nact], dtype=torch.int32, device=cuda)
+    a, b = seg.clone(), seg.clone()
+    ref = frontier_step_plain(a, bins, ids, na, words, tile, nb)
+    out = frontier_step(b, bins, ids, na, words, tile, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
 
 
 def test_region_grow_wrappers_take_plain_on_cpu():

@@ -243,6 +243,33 @@ def test_banded_sweeps_match_interpret(entry):
             seg = jnp.asarray(np.asarray(ref[0]) != 0)
 
 
+@pytest.mark.parametrize("entry", ["fused_sweep", "fused_sweep_banded",
+                                   "fused_sweep_banded_dma"])
+@pytest.mark.parametrize("X0", [1, 33, 100])
+def test_dense_random_sweeps_match_interpret(entry, X0):
+    """A Bernoulli(0.5) state with random decision words, so that almost
+    every voxel lies on the boundary, many flip and all 256 bins occur;
+    the valid region (29, X0) sits inside a (32, 128) pad."""
+    rng = np.random.default_rng(X0)
+    Z, Y, X, Y0 = 4, 32, 128, 29
+    seg = np.zeros((Z, Y, X), bool)
+    seg[:, :Y0, :X0] = rng.random((Z, Y0, X0)) < 0.5
+    idx = np.zeros((Z, Y, X), np.float32)
+    idx[:, :Y0, :X0] = rng.integers(0, 256, (Z, Y0, X0))
+    words = rng.integers(-2 ** 31, 2 ** 31, 8).astype(np.int32)
+    kw = {"valid_yx": (Y0, X0)}
+    if entry != "fused_sweep":
+        kw["band"] = 16
+    with _x32():
+        ref = getattr(jfused, entry)(jnp.asarray(seg).astype(jnp.bfloat16),
+                                     jnp.asarray(idx).astype(jnp.bfloat16),
+                                     jnp.asarray(words), interpret=True, **kw)
+    out = _port_sweep(getattr(tfused, entry), seg, idx, words, **kw)
+    _assert_same_sweep(out, ref)
+    assert out[1].sum() + out[2].sum() > Z * Y0 * X0 // 8
+    assert not out[0][:, Y0:].any() and not out[0][:, :, X0:].any()
+
+
 def test_banded_entries_keep_their_contracts():
     seg = torch.zeros((2, 24, 8), dtype=torch.uint8)
     words = torch.zeros(8, dtype=torch.int32)
@@ -280,6 +307,26 @@ def test_frontier_trajectory_matches_interpret(iters, k_max, shape, nb):
                      **kw)
     out = region_grow_frontier(vol, seed, device="cpu", **kw)
     _same_result(out, ref)
+
+
+@pytest.mark.parametrize("iters,k_max,shape,nb", [
+    (1, 16, (24, 40, 48), 1),
+    (3, 16, (24, 40, 48), 1),
+    (3, 4, (21, 37, 45), 1),        # most tiles carried over
+    (2, 16, (21, 37, 45), 3)])
+def test_frontier_dense_seed_matches_interpret(iters, k_max, shape, nb):
+    """A Bernoulli(0.5) seed in noise: every tile active and on the
+    boundary from the first iteration, many flips both ways."""
+    rng = np.random.default_rng(sum(shape) + iters)
+    vol = rng.normal(0.1, 0.05, shape).astype(np.float32)
+    seed = rng.random(shape) < 0.5
+    kw = dict(max_segment_size=10 ** 6, iter_max=iters, tile=(8, 16),
+              k_max=k_max, nb=nb)
+    ref = j_frontier(jnp.asarray(vol), jnp.asarray(seed), interpret=True,
+                     **kw)
+    out = region_grow_frontier(vol, seed, device="cpu", **kw)
+    _same_result(out, ref)
+    assert int(out.iterations) == iters
 
 
 def test_frontier_size_cap_matches_interpret():
