@@ -20,8 +20,9 @@ iteration cap.  The JAX ``while_loop`` is a Python loop here that reads
 the stop code from the device once per iteration.
 
 ``backend``: "auto" takes the fused sweep (ops/region_grow_fused.py, the
-K2 kernel) for a CUDA tensor with no excluded mask and 256 bins, at any
-shape; otherwise, and always on the CPU, the full-grid path
+K2 kernel, in f32) for f32 data on a CUDA device with no excluded mask
+and 256 bins, at any shape; otherwise (f64 data too, which stays f64),
+and always on the CPU, the full-grid path
 ``_region_grow_xla`` (on CUDA its histograms go to the K6 kernels and its
 sign lookup to K7).  "xla" and "fused" force one or the other.
 
@@ -113,6 +114,18 @@ def _resolve_device(data, device):
     return data.device if torch.is_tensor(data) else torch.device("cuda")
 
 
+def _use_fused(backend, data, excluded_mask, num_bins, device) -> bool:
+    """Whether ``region_grow`` takes the fused grower, which computes in
+    f32: always for ``backend="fused"``; for "auto" only on a CUDA device,
+    with f32 3-D data, no excluded mask and 256 bins.  f64 data stays on
+    the full-grid path in f64, as the JAX package runs it off a TPU."""
+    if backend == "fused":
+        return True
+    return (backend == "auto" and excluded_mask is None and data.dim() == 3
+            and num_bins == 256 and device.type == "cuda"
+            and data.dtype != torch.float64)
+
+
 def region_grow(data, seed_mask, excluded_mask=None, H: float = DEFAULT_H,
                 max_segment_size: int = DEFAULT_MAX_SEGMENT_SIZE,
                 iter_max: int = DEFAULT_ITER_MAX, num_bins: int = 256,
@@ -131,10 +144,7 @@ def region_grow(data, seed_mask, excluded_mask=None, H: float = DEFAULT_H,
     seed_mask = _as_device(seed_mask, device, torch.bool)
     if excluded_mask is not None:
         excluded_mask = _as_device(excluded_mask, device, torch.bool)
-    use_fused = (backend in ("auto", "fused") and excluded_mask is None
-                 and data.dim() == 3 and num_bins == 256
-                 and device.type == "cuda")
-    if backend == "fused" or use_fused:
+    if _use_fused(backend, data, excluded_mask, num_bins, device):
         if excluded_mask is not None or num_bins != 256:
             raise ValueError(
                 "backend='fused' supports neither excluded_mask nor "

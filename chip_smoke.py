@@ -12,7 +12,10 @@ Phases, each printing its own lines:
                lines;
   3. kernel  — K1 against its plain PyTorch twin on the card, at the main
                path's shapes (a smoothed (68, 512, 170) slab per scale),
-               plus a dark and a ragged call; device and call times;
+               plus a dark and a ragged call; device and call times; then
+               the hard cases within 1e-6: X in {1, 2, 33, 167, 170,
+               513} x Y in {1, 3, 17}, one-plane volumes, best_z0 > 0,
+               bowls the sign gate skips wholly or not at all;
   4. small   — the port's run_pipeline on a small phantom on the CPU (twin)
                and on the card (kernel): the outputs must agree;
   5. pipeline_512 — run_pipeline on the 512x512x170 400-branch phantom
@@ -26,6 +29,9 @@ Phases, each printing its own lines:
                and none-segmented volumes, ragged shapes, padded calls,
                a view not on a 16-byte boundary; K5 with ragged last
                tiles, nact < k_pad, nact = 0, nb 1 and 3.  Exact;
+     f64_grow — region_grow "auto" on an f64 tube on the card takes the
+               f64 full-grid path (no K2) and equals the CPU's; the
+               voxels where the f32 fused grower differs are counted;
   7. region_grow_kernels — K6b, K6a, K2 (and the banded entries K3/K4
                run on it), K5 and K7 (values and sign modes) against their
                plain PyTorch versions on the card, at the region-grow
@@ -72,6 +78,7 @@ import sys
 import time
 
 K1_TOL = 1e-5          # kernel vs twin, max |d| on responses in [0, 1]
+K1_EXACT = 1e-6        # the same on the hard cases (bit-identical: 0)
 RECALL_MIN = 0.95
 RG_SHAPE = (512, 512, 170)      # bench.py::bench_region_grow
 RG_KW = {"max_segment_size": 10 ** 6, "iter_max": 300}
@@ -226,6 +233,77 @@ def phase_builds():
     log("builds", f"native/*.cpp (g++): {time.perf_counter() - t0:.2f} s")
 
 
+def k1_hard_cases(dev):
+    """K1 against its twin on the shapes and inputs the path does not
+    reach, as tests/test_torch_kernels.py's ``gpu`` tests: X in {1, 2, 33,
+    167, 170, 513} x Y in {1, 3, 17}, one-plane volumes (zr = Zs = 1),
+    best_z0 > 0, one row at the last plane, and paraboloid bowls that the
+    sign gate skips wholly (+bowl bright, -bowl dark) or not at all.
+    Exits if a call differs by more than K1_EXACT or touches rows of best
+    outside its own; returns the largest max|d|."""
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.ops.vesselness import _smooth
+    from arterynetwork_tpu_torch.ops.vesselness_fused import (
+        frangi_response_max_, frangi_response_plain_)
+
+    def noise(shape, sigma):
+        rng = np.random.default_rng(0)
+        vol = rng.normal(0.1, 0.05, shape).astype(np.float32)
+        zc, yc = shape[0] // 2, shape[1] // 2
+        vol[zc - 1:zc + 2, yc - 1:yc + 2, 2:shape[2] - 2] += 1.0
+        vol[2:shape[0] - 2, 1:4, shape[2] // 2:shape[2] // 2 + 3] += 0.7
+        sm = _smooth(torch.from_numpy(vol).to(dev), sigma)
+        return sm, (sm.abs().max() * 0.5).reshape(())
+
+    def bowl(shape, sign):
+        z, y, x = np.meshgrid(*(np.arange(n, dtype=np.float64)
+                                for n in shape), indexing="ij")
+        vol = ((z - shape[0] / 2) ** 2 + (y - shape[1] / 2) ** 2 / shape[1]
+               + 0.5 * (x - shape[2] / 2) ** 2 / shape[2])
+        return torch.from_numpy((sign * vol).astype(np.float32)).to(dev)
+
+    shapes = [((36, 64, 96), 10, 16, 4), ((21, 37, 53), 0, 21, 0),
+              ((30, 19, 170), 5, 20, 3), ((1, 17, 33), 0, 1, 0),
+              ((1, 3, 170), 0, 1, 2), ((9, 17, 513), 8, 1, 5)]
+    shapes += [((6, y, x), 1, 4, 2) for y in (1, 3, 17)
+               for x in (1, 2, 33, 167, 170, 513)]
+    calls = []
+    for shape, z_lo, zr, b0 in shapes:
+        for sigma in (0.75, 2.0):
+            sm, g = noise(shape, sigma)
+            for bright in (True, False):
+                calls.append((f"{shape} rows {z_lo}+{zr} best_z0 {b0} sigma "
+                              f"{sigma} bright {bright}", sm, z_lo, zr, b0,
+                              sigma, g, bright))
+    one = torch.ones((), device=dev)
+    for sign in (1, -1):
+        sm = bowl((20, 37, 170), sign)
+        for bright in (True, False):
+            calls.append((f"bowl {sign:+d} bright {bright}", sm, 1, 18, 3,
+                          1.0, one, bright))
+    worst, rng = 0.0, np.random.default_rng(1)
+    for label, sm, z_lo, zr, b0, sigma, g, bright in calls:
+        init = torch.from_numpy(rng.uniform(0, 0.05, (zr + b0 + 2,) + tuple(
+            sm.shape[1:])).astype(np.float32)).to(dev)
+        ref, out = init.clone(), init.clone()
+        frangi_response_plain_(ref, b0, sm, z_lo, zr, sigma, g, bright=bright)
+        frangi_response_max_(out, b0, sm, z_lo, zr, sigma, g, bright=bright)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        alone = (torch.equal(out[:b0], init[:b0])
+                 and torch.equal(out[b0 + zr:], init[b0 + zr:]))
+        worst = max(worst, err)
+        if not (err <= K1_EXACT and alone):
+            raise SystemExit(f"K1 disagrees with its twin on {label}: "
+                             f"max|d| {err} (limit {K1_EXACT}); rows "
+                             f"outside the call untouched {alone}")
+    log("kernel", f"hard cases: {len(calls)} calls, max|d| {worst:.3e} "
+        f"(limit {K1_EXACT}); rows outside each call untouched")
+    return worst
+
+
 def phase_kernel(raw):
     import numpy as np
     import torch
@@ -279,6 +357,7 @@ def phase_kernel(raw):
     err, _, _ = compare(rag, g, 1.0, True, 5, 30,
                         f"sigma 1.0 ragged {tuple(rag.shape)}")
     max_err = max(max_err, err)
+    max_err = max(max_err, k1_hard_cases(dev))
     # per launch at the main path's shape: the rows of sm it reads (one
     # beyond each end of the chunk), best read and written
     zs, plane = slab.shape[0], slab.shape[1] * slab.shape[2]
@@ -803,6 +882,46 @@ def phase_region_grow_512(vol, seed):
     return launches, ex
 
 
+def phase_f64_grow():
+    """f64 data on the card: region_grow "auto" takes the f64 full-grid
+    path (K6b and K7, no K2) and equals the port's CPU full-grid result
+    exactly.  The f32 fused grower (backend="fused", the route f64 data
+    took before) runs beside it, and the voxels where it differs are
+    counted."""
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.ops.region_grow import region_grow
+    from arterynetwork_tpu_torch.utils.phantoms import tube_phantom
+
+    shape = (48, 48, 96)          # tests/test_torch_kernels.py::_f64_tube
+    vol, seed = tube_phantom(shape, seed=2)
+    vol = vol.astype(np.float64) + np.random.default_rng(3).normal(
+        0, 1e-3, shape)
+    kw = {"max_segment_size": 10 ** 6, "iter_max": 300}
+    ref = region_grow(vol, seed, backend="xla", device="cpu", **kw)
+    out, secs, counts = _grow_run(
+        lambda: region_grow(vol, seed, device="cuda", **kw))
+    f32 = region_grow(vol, seed, backend="fused", device="cuda", **kw)
+
+    def key(r):
+        return int(r.iterations), int(r.segmented_count), int(r.stop_reason)
+
+    same = (torch.equal(out.segmented_map.cpu(), ref.segmented_map)
+            and torch.equal(out.active_map.cpu(), ref.active_map)
+            and key(out) == key(ref))
+    f32_diff = int((f32.segmented_map.cpu() != ref.segmented_map).sum())
+    log("f64_grow", f"f64 tube {shape}: auto on the card {secs:.4f} s, "
+        f"(iterations, segmented, stop) {key(out)}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; equal to the CPU "
+        f"full-grid result {same}; the f32 fused route {key(f32)}, "
+        f"{f32_diff} voxels differ")
+    if not same or counts["region_grow_sweep"] \
+            or not (counts["masked_histogram1"] and counts["sign_lookup"]):
+        raise SystemExit("f64 region growing on the card did not take the "
+                         "f64 full-grid path, or differs from the CPU")
+
+
 def phase_value_map(vol, seed, ex):
     """The reference's interface on the card: region_grow_value_map with
     the excluded slab as state 4 must reproduce the "xla excluded"
@@ -962,6 +1081,7 @@ def main():
 
     vol, seed = tube_phantom(RG_SHAPE)
     phase_sweep_cases()
+    phase_f64_grow()
     rec = phase_region_grow_kernels(vol, seed)
     grown, ex = phase_region_grow_512(vol, seed)
     vmap = phase_value_map(vol, seed, ex)

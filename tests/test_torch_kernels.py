@@ -8,6 +8,8 @@ compiled with -fmad=false and follows the twin's operation order, so its
 tolerance is 1e-6 absolute on responses in [0, 1] (measured on an H100:
 0, the two are bit-identical).  The region-growing kernels count
 integers and take the same decision words, so they must agree exactly.
+The last tests pin which grower ``region_grow`` takes: f64 data stays on
+the f64 full-grid path, on the card too, equal to the CPU's result.
 This file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch:
@@ -24,7 +26,7 @@ from arterynetwork_tpu_torch.ops import region_grow_fused as rgx
 from arterynetwork_tpu_torch.ops.histogram_kernels import (
     masked_histogram1, masked_histograms2, masked_histograms_plain)
 from arterynetwork_tpu_torch.ops.region_grow import (_bin_ids, _quantize,
-                                                     region_grow)
+                                                     _use_fused, region_grow)
 from arterynetwork_tpu_torch.ops.region_grow_frontier import (
     _compact, _tile_grid, frontier_step, frontier_step_plain)
 from arterynetwork_tpu_torch.ops.vesselness import _smooth
@@ -55,30 +57,70 @@ def _g(sm):
     return (sm.abs().max() * 0.5).reshape(())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,z_lo,zr,best_z0", [
-    ((36, 64, 96), 10, 16, 4),     # block-aligned y/x, interior rows
-    ((21, 37, 53), 0, 21, 0),      # ragged y/x, z edge-replicated at ends
-    ((30, 19, 170), 5, 20, 3),     # the pipeline's x extent
-])
-@pytest.mark.parametrize("bright", [True, False])
-@pytest.mark.parametrize("sigma", [0.75, 2.0])
-def test_kernel_matches_twin(cuda, shape, z_lo, zr, best_z0, bright,
-                             sigma):
-    sm = _smoothed(shape, sigma, device=cuda)
-    g = _g(sm)
+def _bowl(shape, sign):
+    """``sign`` x a paraboloid bowl, steep in z and shallow in y and x, so
+    that qm has the bowl's sign at every voxel of rows [1, Z - 1), the
+    replicated y/x faces included: +1 gates every voxel of a bright call
+    and none of a dark one, -1 the other way round."""
+    z, y, x = np.meshgrid(*(np.arange(n, dtype=np.float64) for n in shape),
+                          indexing="ij")
+    vol = ((z - shape[0] / 2) ** 2 + (y - shape[1] / 2) ** 2 / shape[1]
+           + 0.5 * (x - shape[2] / 2) ** 2 / shape[2])
+    return torch.from_numpy((sign * vol).astype(np.float32))
+
+
+def _k1_against_twin(sm, z_lo, zr, best_z0, sigma, g, bright):
+    """K1 and its twin on one call into a random ``best``; the kernel must
+    leave the rows outside [best_z0, best_z0 + zr) alone and agree within
+    1e-6 (on the card the two are bit-identical)."""
     rng = np.random.default_rng(1)
     init = torch.from_numpy(rng.uniform(0, 0.05, (zr + best_z0 + 2,)
-                                        + shape[1:]).astype(np.float32))
-    ref, out = init.to(cuda), init.to(cuda)
+                                        + tuple(sm.shape[1:])).astype(
+                                            np.float32)).to(sm.device)
+    ref, out = init.clone(), init.clone()
     frangi_response_plain_(ref, best_z0, sm, z_lo, zr, sigma, g,
                            bright=bright)
     n0 = frangi_response_max_.launches
     frangi_response_max_(out, best_z0, sm, z_lo, zr, sigma, g, bright=bright)
     torch.cuda.synchronize()
     assert frangi_response_max_.launches == n0 + 1
-    assert torch.equal(out[:best_z0], init[:best_z0].to(cuda))
+    assert torch.equal(out[:best_z0], init[:best_z0])
+    assert torch.equal(out[best_z0 + zr:], init[best_z0 + zr:])
     assert float((out - ref).abs().max()) <= 1e-6
+    return ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,z_lo,zr,best_z0", [
+    ((36, 64, 96), 10, 16, 4),     # block-aligned y/x, interior rows
+    ((21, 37, 53), 0, 21, 0),      # ragged y/x, z edge-replicated at ends
+    ((30, 19, 170), 5, 20, 3),     # the pipeline's x extent
+    ((1, 17, 33), 0, 1, 0),        # one plane: z replicated on both sides
+    ((1, 3, 170), 0, 1, 2),
+    ((9, 17, 513), 8, 1, 5),       # one row, at the last plane
+] + [((6, y, x), 1, 4, 2) for y in (1, 3, 17)
+     for x in (1, 2, 33, 167, 170, 513)])
+@pytest.mark.parametrize("bright", [True, False])
+@pytest.mark.parametrize("sigma", [0.75, 2.0])
+def test_kernel_matches_twin(cuda, shape, z_lo, zr, best_z0, bright,
+                             sigma):
+    sm = _smoothed(shape, sigma, device=cuda)
+    _k1_against_twin(sm, z_lo, zr, best_z0, sigma, _g(sm), bright)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("bright", [True, False])
+def test_kernel_matches_twin_all_or_none_gated(cuda, sign, bright):
+    sm = _bowl((20, 37, 170), sign).to(cuda)
+    g = torch.ones((), device=cuda)      # ~ half the Hessian's norm
+    _k1_against_twin(sm, 1, 18, 3, 1.0, g, bright)
+    v = torch.zeros((18,) + tuple(sm.shape[1:]), device=cuda)
+    frangi_response_plain_(v, 0, sm, 1, 18, 1.0, g, bright=bright)
+    if (sign > 0) == bright:             # every voxel gated
+        assert not v.any()
+    else:                                # none gated: most respond
+        assert float((v > 1e-4).float().mean()) > 0.9
 
 
 @pytest.mark.gpu
@@ -335,3 +377,53 @@ def test_region_grow_wrappers_reject_bad_arguments(case):
     }
     with pytest.raises(ValueError):
         calls[case]()
+
+
+# ----------------------------------------------------------------------
+# which grower region_grow takes: f64 data stays on the f64 full-grid path
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("backend,dtype,device,excluded,num_bins,fused", [
+    ("auto", torch.float32, "cuda", False, 256, True),
+    ("auto", torch.float64, "cuda", False, 256, False),
+    ("auto", torch.float32, "cpu", False, 256, False),
+    ("auto", torch.float64, "cpu", False, 256, False),
+    ("auto", torch.float32, "cuda", True, 256, False),
+    ("auto", torch.float32, "cuda", False, 512, False),
+    ("xla", torch.float32, "cuda", False, 256, False),
+    ("fused", torch.float32, "cpu", False, 256, True),
+    ("fused", torch.float64, "cuda", False, 256, True),   # computes in f32
+])
+def test_grower_dispatch(backend, dtype, device, excluded, num_bins, fused):
+    data = torch.zeros((2, 3, 4), dtype=dtype)
+    exc = torch.zeros((2, 3, 4), dtype=torch.bool) if excluded else None
+    assert _use_fused(backend, data, exc, num_bins,
+                      torch.device(device)) is fused
+
+
+def test_grower_dispatch_auto_needs_a_volume():
+    assert not _use_fused("auto", torch.zeros((3, 4)), None, 256,
+                          torch.device("cuda"))
+
+
+def _f64_tube(shape=(48, 48, 96)):
+    """The tube phantom with f64 noise added: values f32 cannot hold."""
+    vol, seed = tube_phantom(shape, seed=2)
+    rng = np.random.default_rng(3)
+    return vol.astype(np.float64) + rng.normal(0, 1e-3, shape), seed
+
+
+@pytest.mark.gpu
+def test_f64_auto_on_card_matches_cpu_full_grid(cuda):
+    vol, seed = _f64_tube()
+    kw = {"max_segment_size": 10 ** 6, "iter_max": 300}
+    ref = region_grow(vol, seed, backend="xla", device="cpu", **kw)
+    n0 = rgx.fused_sweep_counts.launches
+    out = region_grow(vol, seed, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert rgx.fused_sweep_counts.launches == n0
+    assert torch.equal(out.segmented_map.cpu(), ref.segmented_map)
+    assert torch.equal(out.active_map.cpu(), ref.active_map)
+    assert (int(out.iterations), int(out.segmented_count),
+            int(out.stop_reason)) == (int(ref.iterations),
+                                      int(ref.segmented_count),
+                                      int(ref.stop_reason))
