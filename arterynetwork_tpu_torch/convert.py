@@ -2,8 +2,8 @@
 
 The functions read their inputs by attribute only (no import of JAX or of
 the JAX package): any object with the fields of the JAX package's
-``FlowSystem``, ``EliminationPlan``, ``PipelineConfig`` or
-``RegionGrowResult`` converts, with array fields given as numpy arrays or
+``FlowSystem``, ``EliminationPlan``, ``DistributeSystem``,
+``PipelineConfig`` or ``RegionGrowResult`` converts, with array fields given as numpy arrays or
 anything ``np.asarray`` takes.  Used by the parity tests to feed both
 packages the same state.
 """
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import PipelineConfig
+from .flow.distribute import DistributeSystem
 from .flow.system import FlowSystem
 from .flow.tree_solver import EliminationPlan
 from .ops.region_grow import RegionGrowResult
@@ -58,6 +59,24 @@ def elimination_plan(src, device="cuda") -> EliminationPlan:
         valid=torch.as_tensor(np.array(src.valid, bool), device=device),
         core_nodes=idx("core_nodes"), core_slot=idx("core_slot"),
         num_rounds=int(src.num_rounds), core_size=int(src.core_size))
+
+
+def distribute_system(src, device="cuda") -> DistributeSystem:
+    """A JAX ``DistributeSystem`` -> the port's, on ``device`` (the
+    floating fields keep their dtype)."""
+    fields = {}
+    for name in DistributeSystem._fields:
+        v = getattr(src, name)
+        if name in ("root", "num_nodes"):
+            fields[name] = int(v)
+        elif name in ("inlet_flow", "inlet_pressure"):
+            fields[name] = float(v)
+        else:
+            a = np.array(v)
+            if a.dtype.kind in "iu":
+                a = a.astype(np.int64)
+            fields[name] = torch.as_tensor(a, device=device)
+    return DistributeSystem(**fields)
 
 
 def pipeline_config(src) -> PipelineConfig:

@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/flow/adan.py; Darcy-Weisbach networks raise (flow/network_setup is not ported).
+# Copy of arterynetwork_tpu/flow/adan.py, unchanged.
 """ADAN-derived Hazen-Williams coefficient model (reference C13 part).
 
 ``setNetwork`` option 2 (fluidSimulation.py:401-439) assigns each edge a
@@ -105,9 +105,8 @@ def set_network_ck(net: FlowNetwork, model: ADANModel = None) -> FlowNetwork:
     the friction law the user selected rather than silently reverting
     to HW."""
     if getattr(net, "physics", "hw") == "dw":
-        raise NotImplementedError(
-            "Darcy-Weisbach networks need flow/network_setup, which the "
-            "port does not carry yet")
+        from .network_setup import apply_darcy_weisbach
+        return apply_darcy_weisbach(net)
     if model is None:
         model = ADANModel()
     c = model.c_of_radius(net.radius_m())

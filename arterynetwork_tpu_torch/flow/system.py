@@ -68,14 +68,52 @@ class FlowSystem:
         return self.head.shape[0]
 
     @property
+    def num_unknowns(self) -> int:
+        return self.num_edges + self.num_unknown_pressures
+
+    @property
     def device(self) -> torch.device:
         return self.radius_m.device
 
     def full_pressure(self, p_unknown: torch.Tensor) -> torch.Tensor:
-        """Scatter unknown pressures into the full node-pressure vector."""
-        padded = torch.cat([p_unknown, p_unknown.new_zeros(1)])
+        """Scatter unknown pressures ``[..., M]`` into full node-pressure
+        vectors ``[..., N]`` (leading axes broadcast against
+        ``node_fixed_pressure``'s, for batched systems)."""
+        pad = p_unknown.new_zeros(p_unknown.shape[:-1] + (1,))
+        padded = torch.cat([p_unknown, pad], dim=-1)
         return torch.where(self.node_fixed, self.node_fixed_pressure,
-                           padded[self.node_unknown_index])
+                           padded[..., self.node_unknown_index])
+
+    def unknown_pressure_of(self, p_full: torch.Tensor) -> torch.Tensor:
+        """The unknown pressures (in unknown order) of full node-pressure
+        vectors ``[..., N]``."""
+        node_arg = self.node_arg.cpu().numpy()
+        order = np.argsort(node_arg)
+        unknown_nodes = order[node_arg[order] >= 0]
+        return p_full[..., torch.as_tensor(unknown_nodes,
+                                           device=p_full.device)]
+
+
+def apply_velocity_pressure(net: FlowNetwork, system: FlowSystem,
+                            x) -> FlowNetwork:
+    """Unpack the unknown vector into a network carrying the solution
+    (updateNetworkWithSimulationResult, fluidSimulation.py:1519-1546):
+    node pressures from the unknown slots (fixed nodes keep their
+    prescribed values), per-edge velocity, and flow = v*pi*r^2."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x, dtype=np.float64)
+    E = system.num_edges
+    if x.shape[0] != system.num_unknowns:
+        raise ValueError("solution length != num_unknowns")
+    velocity = x[:E]
+    p_unknown = torch.as_tensor(x[E:], device=system.device)
+    p_full = np.asarray(system.full_pressure(p_unknown).cpu().numpy(),
+                        dtype=np.float64)
+    radius = system.radius_m.cpu().numpy()
+    flow = velocity * np.pi * radius ** 2
+    return net.replace(node_pressure=p_full, edge_velocity=velocity,
+                       edge_flow=flow)
 
 
 def build_system(

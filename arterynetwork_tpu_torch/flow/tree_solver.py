@@ -118,63 +118,71 @@ def solve_laplacian_tree(system: FlowSystem, plan: EliminationPlan,
                          w, rhs):
     """Solve Laplacian(w) x = rhs exactly via the elimination plan.
 
-    w: f[E] edge weights; rhs: f[M].  The Laplacian diagonal includes
-    edges to fixed-pressure nodes (their unknowns were substituted into
-    the rhs by the caller)."""
+    w: f[E] edge weights; rhs: f[M] — or f[T, E] / f[T, M] for T
+    independent systems on one graph, solved together (each row as it
+    would be alone).  Entries of w beyond the system's E edges are
+    ignored.  The Laplacian diagonal includes edges to fixed-pressure
+    nodes (their unknowns were substituted into the rhs by the caller)."""
+    if w.dim() == 1:
+        return solve_laplacian_tree(system, plan, w[None], rhs[None])[0]
     M = system.num_unknown_pressures
-    E = w.shape[0]
+    E = system.num_edges
+    T = w.shape[0]
     dtype = w.dtype
     slot = system.node_unknown_index
     hu = slot[system.head]
     tu = slot[system.tail]
+    w = w[:, :E]
 
     # initial diagonal: all incident edge weights (fixed neighbors too)
-    d = w.new_zeros(M + 1).index_add_(0, hu, w).index_add_(0, tu, w)[:M]
-    d = torch.cat([d, w.new_ones(1)])                    # sentinel
-    b = torch.cat([rhs.to(dtype), w.new_zeros(1)])
-    w_pad = torch.cat([w, w.new_zeros(1)])
+    d = w.new_zeros(T, M + 1).index_add_(1, hu, w).index_add_(1, tu, w)
+    d[:, M] = 1.0                                            # sentinel
+    b = torch.cat([rhs.to(dtype), w.new_zeros(T, 1)], dim=1)
+    w_pad = torch.cat([w, w.new_zeros(T, 1)], dim=1)
 
     # ---- forward elimination ----
     # every gather of a round reads the values from before the round's
-    # scatter-adds (two leaves of one round may be each other's parent)
+    # scatter-adds (two leaves of one round may be each other's parent);
+    # index_select costs the host half of what x[:, idx] does
     for r in range(plan.num_rounds):
         ev, pv = plan.elim_nodes[r], plan.parents[r]
         val = plan.valid[r]
-        wv = w_pad[plan.edge_idx[r]]
-        dv = torch.where(val, d[ev], 1.0)
+        wv = w_pad.index_select(1, plan.edge_idx[r])
+        dv = torch.where(val, d.index_select(1, ev), 1.0)
         factor = torch.where(val, wv / dv, 0.0)
-        bv = b[ev]
-        d.index_add_(0, pv, -factor * wv)
-        b.index_add_(0, pv, factor * bv)
+        bv = b.index_select(1, ev)
+        d.index_add_(1, pv, -factor * wv)
+        b.index_add_(1, pv, factor * bv)
 
     # ---- core solve (loops) ----
-    x = w.new_zeros(M + 1)
+    x = w.new_zeros(T, M + 1)
     if plan.core_size > 0:
         C = plan.core_size
         cs = plan.core_slot
         chu = cs[hu]
         ctu = cs[tu]
         both = (chu < C) & (ctu < C)
-        wc = torch.where(both, w_pad[:E], 0.0)
-        L = w.new_zeros((C + 1, C + 1))
+        wc = torch.where(both, w, 0.0)
+        # L as rows of (C+1)^2 entries; scatter-adds in edge order
+        L = w.new_zeros(T, (C + 1) * (C + 1))
         ar = torch.arange(C, device=w.device)
         # diagonal comes from the eliminated d values at core nodes
-        L.index_put_((ar, ar), d[plan.core_nodes], accumulate=True)
-        L.index_put_((chu, ctu), -wc, accumulate=True)
-        L.index_put_((ctu, chu), -wc, accumulate=True)
-        A = L[:C, :C]
-        ridge = 1e-12 * torch.max(w) + 1e-30
-        xc = torch.linalg.solve(
-            A + torch.eye(C, dtype=dtype, device=w.device) * ridge,
-            b[plan.core_nodes])
-        x[plan.core_nodes] = xc
+        L.index_add_(1, ar * (C + 2), d[:, plan.core_nodes])
+        L.index_add_(1, chu * (C + 1) + ctu, -wc)
+        L.index_add_(1, ctu * (C + 1) + chu, -wc)
+        A = L.view(T, C + 1, C + 1)[:, :C, :C]
+        ridge = 1e-12 * w.amax(dim=1) + 1e-30
+        eye = torch.eye(C, dtype=dtype, device=w.device)
+        xc = torch.linalg.solve_ex(A + eye * ridge[:, None, None],
+                                   b[:, plan.core_nodes])[0]
+        x[:, plan.core_nodes] = xc
 
     # ---- back substitution ----
     for r in reversed(range(plan.num_rounds)):
         ev, pv = plan.elim_nodes[r], plan.parents[r]
         val = plan.valid[r]
-        wv = w_pad[plan.edge_idx[r]]
-        dv = torch.where(val, d[ev], 1.0)
-        xv = (b[ev] + wv * x[pv]) / dv
-        x[ev] = torch.where(val, xv, x[ev])
-    return x[:M]
+        wv = w_pad.index_select(1, plan.edge_idx[r])
+        dv = torch.where(val, d.index_select(1, ev), 1.0)
+        xv = (b.index_select(1, ev) + wv * x.index_select(1, pv)) / dv
+        x.index_copy_(1, ev, torch.where(val, xv, x.index_select(1, ev)))
+    return x[:, :M]

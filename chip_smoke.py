@@ -55,6 +55,23 @@ Phases, each printing its own lines:
                pipeline_512 phantom, seeded with the 3x3x3 cube at the
                tree's root: one warm-up and three timed runs, finite
                pressures and flows, at least one segment.
+ 11. flow_solvers — bench.py::bench_flow_large's 16k-edge tree (depth
+               13, 8,190 unknowns) solved f32 at tol 1e-9 with "auto" and
+               the elimination plan (tree) and with "cg", f64 "cg" at the
+               default tol 1e-14, and the flagship entry (depth 9, f32
+               CG): ms per solve (median of 3 after a warm-up), Newton
+               iterations, CG steps per linear solve, host reads per
+               solve, max relative pressure error against the ground
+               truth (<= 1e-6 f32, <= 1e-9 f64);
+ 12. longitudinal — GBMTest5 on the depth-13 tree, T = 8, f64, "auto"
+               with the plan: the batched solve against T unbatched
+               solves (same iterations, pressures within 1e-12), every
+               residual < 1e-10 m^3/s, row 0 on the ground truth;
+ 13. studies — the study CLI's eight drivers at depth 10 (and gbm5 on
+               the Darcy-Weisbach network): seconds per driver, finite
+               outputs, the solver drivers equal to the port on the CPU
+               within 1e-9, pickles written and read back.
+ Phases 11-13 launch none of the repository's kernels (checked).
 
 A kernel's "ms" is its own kernels' device time per call from a
 torch.profiler trace (the plain version's and the library call's: all
@@ -1057,6 +1074,363 @@ def phase_seeded_pipeline(phantom, raw):
     return counts
 
 
+FLOW_DEPTH = 13      # bench.py::bench_flow_large, "16k"
+STUDY_DEPTH = 10     # BraVa single-subject scale (~2k segments)
+LONG_T = 8           # longitudinal timesteps
+STUDY_DRIVERS = ("flow_split", "same_flow", "two_timepoint", "tp_fit",
+                 "gbm4", "gbm5", "gbm5b", "distribute")   # the study CLI's
+
+
+def _sync_s(fn):
+    """(result, host seconds of ``fn`` ended by torch.cuda.synchronize())."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _median_ms(fn, reps=3):
+    """(last result, median ms of ``reps`` synchronised runs after one
+    warm-up)."""
+    fn()
+    runs = [_sync_s(fn) for _ in range(reps)]
+    return runs[-1][0], 1e3 * statistics.median(t for _, t in runs)
+
+
+def _bench_tree(depth):
+    """bench.py::_build's tree and ground truth: seeds 0 (tree,
+    properties) and 1 (ground truth), k = 1.852."""
+    import numpy as np
+
+    from arterynetwork_tpu_torch.flow import create_ground_truth
+    from arterynetwork_tpu_torch.graphs import (generate_tree,
+                                                set_network_properties)
+
+    rng = np.random.default_rng(0)
+    net = generate_tree(max_depth=depth, rng=rng)
+    net = set_network_properties(net, k_value=1.852, rng=rng)
+    return net, create_ground_truth(net, option=2,
+                                    rng=np.random.default_rng(1))
+
+
+def _no_launches(phase):
+    counts = {k: v for k, v in read_counts().items() if v}
+    if counts:
+        raise SystemExit(f"{phase}: kernel launches {counts}, expected none")
+
+
+def phase_flow_solvers():
+    """The flow solvers on the 16k-edge tree and the flagship entry."""
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch import flagship
+    from arterynetwork_tpu_torch.flow import build_system
+    from arterynetwork_tpu_torch.flow.solvers import (SolveStats,
+                                                      solve_pressure_newton)
+    from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
+
+    reset_counts()
+    out = {"phase": "flow_solvers", "depth": FLOW_DEPTH, "solves": {}}
+    net, gt = _bench_tree(FLOW_DEPTH)
+    sys32, sys64 = (build_system(net, boundary_pressure=gt.pressure,
+                                 dtype=dt, device="cuda")
+                    for dt in (torch.float32, torch.float64))
+    plan = plan_elimination(sys32)
+    out.update(edges=net.num_edges, unknowns=sys32.num_unknown_pressures)
+    cases = {
+        "tree_f32": (sys32, dict(tol=1e-9, linear_solver="auto", plan=plan),
+                     1e-6),
+        "cg_f32": (sys32, dict(tol=1e-9, linear_solver="cg"), 1e-6),
+        "cg_f64": (sys64, dict(linear_solver="cg"), 1e-9),
+    }
+    for name, (system, kw, limit) in cases.items():
+        sol, ms = _median_ms(lambda: solve_pressure_newton(
+            system, max_iter=60, **kw))
+        stats = SolveStats()
+
+        def counted():
+            return solve_pressure_newton(system, max_iter=60, stats=stats,
+                                         **kw)
+
+        # cg f64's ~100k ops would take the tracer tens of seconds to list
+        wall, busy, idle = ((None,) * 3 if name == "cg_f64" else
+                            device_idle(counted))
+        if name == "cg_f64":
+            counted()
+        p = sol.pressure.double().cpu().numpy()
+        err = float(np.nanmax(np.abs(p - gt.pressure) / np.abs(gt.pressure)))
+        finite = bool(torch.isfinite(sol.pressure).all()
+                      and torch.isfinite(sol.flow).all())
+        cg = (None if stats.cg_steps is None
+              else int(stats.cg_steps.sum()) / stats.linear_solves)
+        rec = {"ms": ms, "newton_iterations": sol.iterations,
+               "linear_solves": stats.linear_solves,
+               "cg_steps_per_linear_solve": cg,
+               "host_reads": stats.host_reads,
+               "max_rel_pressure_err": err, "limit": limit,
+               "residual_norm": float(sol.residual_norm), "finite": finite,
+               "traced_s": wall, "device_busy_s": busy, "device_idle": idle}
+        out["solves"][name] = rec
+        log("flow_solvers", f"{name}: {ms:.3f} ms per solve, {sol.iterations}"
+            f" Newton iterations, {stats.linear_solves} linear solves, CG "
+            f"steps per linear solve {cg}, {stats.host_reads} host reads, "
+            f"max rel pressure error {err:.3e} (limit {limit}); " + (
+                "not traced" if wall is None else f"traced {wall:.4f} s, "
+                f"device busy {busy:.4f} s ({idle:.1%} idle)"))
+        if not (finite and err <= limit):
+            raise SystemExit(f"flow_solvers {name}: error {err} > {limit} "
+                             f"or non-finite")
+    fwd, args = flagship.entry(device="cuda")
+    (p, q), ms = _median_ms(lambda: fwd(*args))
+    fsys, fgt = flagship.flagship_system(max_depth=9, device="cuda")
+    err = float(np.nanmax(np.abs(p.double().cpu().numpy() - fgt.pressure)
+                          / np.abs(fgt.pressure)))
+    finite = bool(torch.isfinite(p).all() and torch.isfinite(q).all())
+    out["solves"]["flagship_entry"] = {
+        "ms": ms, "max_rel_pressure_err": err, "finite": finite,
+        "edges": int(fsys.num_edges)}
+    log("flow_solvers", f"flagship entry (depth 9, f32 CG): {ms:.3f} ms, "
+        f"max rel pressure error {err:.3e}, finite {finite}")
+    if not (finite and err <= 1e-5):
+        raise SystemExit(f"flagship entry: error {err} or non-finite")
+    _no_launches("flow_solvers")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _study_net(depth, physics="hw"):
+    """The study CLI's set-up (``__main__._cmd_study``, seed 0): a tree,
+    one compartment per depth-1 node, the first shrunk to 0.85."""
+    import numpy as np
+
+    from arterynetwork_tpu_torch.flow import apply_darcy_weisbach
+    from arterynetwork_tpu_torch.flow.boundary import bfs_partition
+    from arterynetwork_tpu_torch.graphs import (generate_tree,
+                                                set_network_properties)
+
+    rng = np.random.default_rng(0)
+    net = set_network_properties(generate_tree(max_depth=depth, rng=rng),
+                                 rng=rng)
+    if physics == "dw":
+        net = apply_darcy_weisbach(net)
+    roots = np.nonzero(net.node_depth == 1)[0]
+    parts = {f"P{i}": {"start_nodes": [int(r)], "boundary_nodes": []}
+             for i, r in enumerate(roots)}
+    radius_end = net.radius.copy()
+    radius_end[bfs_partition(net, parts["P0"]["start_nodes"],
+                             [])["visited_edges"]] *= 0.85
+    return net, parts, radius_end, rng
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| over arrays, or lists of arrays, flattened."""
+    import numpy as np
+
+    def flat(v):
+        return np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in
+                               (v if isinstance(v, list) else [v])])
+
+    a, b = flat(a), flat(b)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def phase_longitudinal():
+    """GBMTest5 on the depth-13 tree: the batched solve and each row's own
+    solve on the card."""
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.flow import build_system, create_ground_truth
+    from arterynetwork_tpu_torch.flow.longitudinal import (
+        build_timestep_batch, solve_timestep_batch)
+    from arterynetwork_tpu_torch.flow.solvers import (SolveStats,
+                                                      solve_pressure_newton)
+    from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
+
+    reset_counts()
+    net, parts, radius_end, rng = _study_net(FLOW_DEPTH)
+    gt = create_ground_truth(net, option=2, rng=rng)
+    (batch, prep_s) = _sync_s(lambda: build_timestep_batch(
+        net, gt.pressure, radius_end, LONG_T, 1, partitions=parts))
+    sol, batched_ms = _median_ms(lambda: solve_timestep_batch(
+        net, batch, dtype=torch.float64, device="cuda"))
+    stats = SolveStats()                # counted in the traced run
+    wall, busy, idle = device_idle(lambda: solve_timestep_batch(
+        net, batch, dtype=torch.float64, device="cuda", stats=stats))
+    rows = []
+    for t in range(LONG_T):
+        net_t = net.replace(radius=batch["radius_m"][t] / net.spacing,
+                            c=batch["c"][t], k=batch["k"][t])
+        rows.append(build_system(net_t, batch["boundary_pressure"][t],
+                                 device="cuda"))
+    plan = plan_elimination(rows[0])
+
+    def one_by_one():
+        return [solve_pressure_newton(s, linear_solver="auto", plan=plan)
+                for s in rows]
+
+    singles, rows_ms = _median_ms(one_by_one)
+    its = sol.iterations.tolist()
+    row_its = [s.iterations for s in singles]
+    row_rel = max(_rel(s.pressure.cpu(), sol.pressure[t].cpu())
+                  for t, s in enumerate(singles))
+    resid = sol.residual_norm.cpu().numpy()
+    p0, q0 = sol.pressure[0].cpu().numpy(), sol.flow[0].cpu().numpy()
+    gt_ok = (np.allclose(p0, gt.pressure, rtol=1e-7, atol=1e-6)
+             and np.allclose(q0, gt.flow, rtol=1e-6, atol=1e-15))
+    finite = bool(torch.isfinite(sol.pressure).all()
+                  and torch.isfinite(sol.flow).all())
+    out = {"phase": "longitudinal", "depth": FLOW_DEPTH, "T": LONG_T,
+           "edges": net.num_edges, "batch_prep_s": prep_s,
+           "batched_ms": batched_ms, "unbatched_rows_ms": rows_ms,
+           "iterations": its, "row_iterations": row_its,
+           "batched_host_reads": stats.host_reads,
+           "batched_traced_s": wall, "batched_device_busy_s": busy,
+           "batched_device_idle": idle,
+           "max_residual_m3s": float(resid.max()),
+           "row0_vs_ground_truth": bool(gt_ok),
+           "max_rel_row_diff": row_rel, "finite": finite}
+    log("longitudinal", f"T={LONG_T} on {net.num_edges} edges: batch prep "
+        f"{prep_s:.3f} s (host); batched solve {batched_ms:.3f} ms, "
+        f"{stats.host_reads} host reads, traced {wall:.4f} s with the "
+        f"device busy {busy:.4f} s ({idle:.1%} idle); {LONG_T} unbatched "
+        f"solves "
+        f"{rows_ms:.3f} ms; iterations {its} (rows alone {row_its}); max "
+        f"residual {resid.max():.3e} m^3/s; row 0 on the ground truth "
+        f"{gt_ok}; max rel diff batch vs rows {row_rel:.3e}")
+    if not (finite and resid.max() < 1e-10 and gt_ok and its == row_its
+            and row_rel <= 1e-12):
+        raise SystemExit("longitudinal: a gate failed")
+    _no_launches("longitudinal")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _drivers(net, parts, radius_end, rng, store, device, physics):
+    """The study CLI's drivers (``__main__._cmd_study``) on ``device``:
+    {name: a call returning its result (for the solver drivers, the
+    fields to hold against the CPU)}."""
+    import os
+
+    import torch
+
+    from arterynetwork_tpu_torch import flow
+    from arterynetwork_tpu_torch.flow.distribute import distribute_flow_study
+    from arterynetwork_tpu_torch.flow.longitudinal import run_longitudinal
+
+    common = dict(num_timesteps=4, interpolation_option=1, partitions=parts)
+
+    def gbm5():
+        gt = flow.create_ground_truth(net, option=2, rng=rng)
+        batch, sol = run_longitudinal(net, gt.pressure, radius_end,
+                                      dtype=torch.float64, device=device,
+                                      **common)
+        names = flow.save_gbm_test5_results(store, net, batch, sol)
+        back = [store.load_pickle(n) for n in names]
+        return {"pressure": sol.pressure.cpu().numpy(),
+                "flow": sol.flow.cpu().numpy(), "pickles": len(back),
+                "keys": sorted(back[0])}
+
+    def tp_fit():
+        out = flow.tp_fit_solve_study(net, radius_end, store=store,
+                                      device=device, **common)
+        return {"pressure": [r["pressure"] for r in out["timesteps"]],
+                "flow": [r["flow"] for r in out["timesteps"]],
+                "pickles": sum(1 for n in os.listdir(store.base_dir)
+                               if n.startswith("fluidSimulationResultTest6"))}
+
+    def gbm4():
+        out = flow.gbm_test4(net, partitions=parts,
+                             partition_to_perturb=("P0",), store=store,
+                             device=device)
+        return {"pressure": out["pressure"], "flow": out["flow"],
+                "pickle": sorted(store.load_pickle(
+                    "fluidSimulationResultGBMTest4(solvedYear=BraVa, "
+                    "perturbNetworkOption=1).pkl")["solvedYear"])}
+
+    def distribute():
+        out = distribute_flow_study(net, device=device)
+        return {"fractions": out["fractions"], "edge_flow": out["edge_flow"],
+                "rms": out["rms_mismatch_mmhg"]}
+
+    if physics == "dw":
+        return {"gbm5_dw": gbm5}
+    return {
+        "flow_split": lambda: flow.flow_split_study(net, radius_end,
+                                                    **common),
+        "same_flow": lambda: flow.same_flow_study(net, radius_end, **common),
+        "two_timepoint": lambda: flow.two_timepoint_comparison(net,
+                                                               radius_end),
+        "tp_fit": tp_fit, "gbm4": gbm4, "gbm5": gbm5,
+        "gbm5b": lambda: flow.gbm_test5b(net, radius_end,
+                                         excluded_edges=(), **common),
+        "distribute": distribute}
+
+
+def _finite(v):
+    import numpy as np
+
+    if isinstance(v, dict):
+        return all(_finite(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return all(_finite(x) for x in v)
+    if isinstance(v, (np.ndarray, float)):
+        a = np.asarray(v, np.float64)
+        return bool(np.isfinite(a[~np.isnan(a)]).all())
+    return True
+
+
+def phase_studies():
+    """The study drivers at depth 10 on the card; the solver drivers also
+    on the CPU, which they must equal within 1e-9."""
+    import os
+    import tempfile
+
+    from arterynetwork_tpu_torch.io import ArtifactStore
+
+    reset_counts()
+    out = {"phase": "studies", "depth": STUDY_DEPTH, "seconds": {},
+           "cpu_seconds": {}, "max_rel_cpu": {}}
+    meta = ("pickles", "keys", "pickle")
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        for physics, name in [("hw", n) for n in STUDY_DRIVERS] + [
+                ("dw", "gbm5_dw")]:
+            def run(device):
+                net, parts, radius_end, rng = _study_net(STUDY_DEPTH,
+                                                         physics)
+                store = ArtifactStore(os.path.join(tmp, device, name))
+                return _drivers(net, parts, radius_end, rng, store, device,
+                                physics)[name]()
+
+            res, secs = _sync_s(lambda: run("cuda"))
+            out["seconds"][name] = secs
+            if not _finite(res):
+                raise SystemExit(f"studies {name}: non-finite output")
+            msg = f"{name}: {secs:.3f} s on the card"
+            if name in ("tp_fit", "gbm4", "gbm5", "gbm5_dw", "distribute"):
+                t0 = time.perf_counter()
+                ref = run("cpu")
+                out["cpu_seconds"][name] = time.perf_counter() - t0
+                rel = max(_rel(res[k], ref[k]) for k in res if k not in meta)
+                same = all(res[k] == ref[k] for k in meta if k in res)
+                out["max_rel_cpu"][name] = rel
+                pickles = {k: res[k] for k in meta if k in res}
+                msg += (f", {out['cpu_seconds'][name]:.3f} s on the CPU, max "
+                        f"rel diff {rel:.3e}; pickles {pickles}")
+                if not (rel <= 1e-9 and same):
+                    raise SystemExit(f"studies {name}: card and CPU differ "
+                                     f"({rel}, pickles {same})")
+            log("studies", msg)
+    _no_launches("studies")
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -1086,6 +1460,14 @@ def main():
     grown, ex = phase_region_grow_512(vol, seed)
     vmap = phase_value_map(vol, seed, ex)
     seeded = phase_seeded_pipeline(phantom, raw)
+    t_flow = time.perf_counter()
+    for phase in (phase_flow_solvers, phase_longitudinal, phase_studies):
+        t1 = time.perf_counter()
+        phase()
+        log("timing", f"{phase.__name__}: {time.perf_counter() - t1:.1f} s")
+    log("timing", f"from the data phase to the flow phases "
+        f"{t_flow - t0:.1f} s; the flow phases "
+        f"{time.perf_counter() - t_flow:.1f} s")
 
     paths = {"pipeline_512": {"frangi_response": launches},
              **{f"region_grow_512 {k}": v for k, v in grown.items()},

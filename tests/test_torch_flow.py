@@ -2,8 +2,8 @@
 
 The same system — assembled by the JAX package and carried across by
 ``arterynetwork_tpu_torch.convert`` — goes through both Newton solvers,
-with the dense and the tree-elimination linear solvers, on a tree and on
-a tree with merge loops (a non-empty 2-core).  Tolerances, relative to
+with the dense, the tree-elimination and the matrix-free CG linear
+solvers, on a tree and on a tree with merge loops (a non-empty 2-core).  Tolerances, relative to
 the largest magnitude (values measured on a CPU in brackets):
 
   * f64: pressures and flows <= 1e-9 [pressures 0, flows 7e-16];
@@ -45,7 +45,7 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("allow_merge", [False, True])
-@pytest.mark.parametrize("linear_solver", ["dense", "tree"])
+@pytest.mark.parametrize("linear_solver", ["dense", "tree", "cg"])
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-9), ("float32", 1e-5)])
 def test_newton_matches_jax(allow_merge, linear_solver, dtype, tol):
     net, gt = _network(allow_merge)
@@ -110,7 +110,8 @@ def test_f32_refinement_beats_plain_f32():
 
 def test_restarts_and_cg():
     """Restarts run from a seeded torch.Generator when the primary solve
-    stalls above the trigger; the matrix-free CG backend is not ported."""
+    stalls above the trigger; the matrix-free CG backend matches the JAX
+    package's (f64, at the f64 tolerance, the same Newton iterations)."""
     net, gt = _network(allow_merge=False)
     sys_t = tsystem.build_system(net, boundary_pressure=gt.pressure,
                                  device="cpu")
@@ -119,5 +120,10 @@ def test_restarts_and_cg():
     sol = tsolvers.solve_pressure_newton(sys_t, max_iter=1, restarts=2)
     assert sol.iterations > one.iterations
     assert float(sol.residual_norm) <= float(one.residual_norm)
-    with pytest.raises(NotImplementedError):
-        tsolvers.solve_pressure_newton(sys_t, linear_solver="cg")
+    sys_j = build_system(net, boundary_pressure=gt.pressure)
+    ref = solve_pressure_newton(sys_j, linear_solver="cg")
+    cg = tsolvers.solve_pressure_newton(convert.flow_system(sys_j, "cpu"),
+                                        linear_solver="cg")
+    assert cg.iterations == int(ref.iterations)
+    assert _rel(cg.pressure.numpy(), np.asarray(ref.pressure)) <= 1e-9
+    assert _rel(cg.flow.numpy(), np.asarray(ref.flow)) <= 1e-9
