@@ -1,0 +1,153 @@
+"""Connected-component labeling as iterated label propagation.
+
+Port of the JAX package's ops/cc.py (the reference's
+``skimage.measure.label``, generateVesselVolume.py:107-136 and
+skeletonization.py:108).  Every foreground voxel starts with its flat
+index as a label; each round takes the min label over the neighborhood
+(restricted to foreground), then pointer-jumps ``label <- label[label]``
+twice.  The rounds stop when nothing changes or at ``max_rounds``, as in
+the JAX package, so even an unconverged result equals its.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .region_grow import _as_device, _resolve_device
+
+
+def _axis_min3(x, axis):
+    """Min over the 3-window along ``axis`` (nothing outside)."""
+    n = x.shape[axis]
+    out = x.clone()
+    if n > 1:
+        lo, hi = x.narrow(axis, 0, n - 1), x.narrow(axis, 1, n - 1)
+        o = out.narrow(axis, 1, n - 1)
+        torch.minimum(o, lo, out=o)
+        o = out.narrow(axis, 0, n - 1)
+        torch.minimum(o, hi, out=o)
+    return out
+
+
+def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
+                         device=None):
+    """Label 26-connected (connectivity=3) or 6-connected (connectivity=1)
+    components on ``device`` (by default the device of a ``mask`` tensor;
+    host arrays go to the card).  Returns int32 labels: 0 = background,
+    components numbered by the flat index of their smallest voxel + 1
+    (relabel to compact ids with ``compact_labels``).
+
+    ``connectivity`` follows skimage: 1 = faces only, 2 = faces+edges,
+    3 = faces+edges+corners (2 is approximated as 3, as in the JAX
+    package; the reference always uses maxHop=3).  The host reads one
+    flag per round; ``connected_components.rounds`` holds the rounds the
+    last call ran.
+    """
+    device = _resolve_device(mask, device)
+    fg = _as_device(mask, device) != 0
+    shape = fg.shape
+    n = int(np.prod(shape))
+    idx = torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
+    big = torch.tensor(n, dtype=torch.int32, device=device)
+    labels = torch.where(fg, idx, big)
+
+    def propagate(lab):
+        best = lab
+        for axis in range(lab.dim()):
+            if connectivity == 1:
+                best = torch.minimum(best, _axis_min3(lab, axis))
+            else:
+                best = _axis_min3(best, axis)
+        return torch.where(fg, torch.minimum(lab, best), big)
+
+    def jump(lab):
+        flat = lab.reshape(-1)
+        padded = torch.cat([flat, big.reshape(1)])
+        return padded[torch.clamp_max(flat, n)].reshape(shape)
+
+    rounds = 0
+    while rounds < max_rounds:
+        new = jump(jump(propagate(labels)))
+        changed = bool(torch.any(new != labels))
+        labels = new
+        rounds += 1
+        if not changed:
+            break
+    connected_components.rounds = rounds
+    return torch.where(fg, labels + 1, 0).to(torch.int32)
+
+
+connected_components.rounds = 0
+
+
+def compact_labels(labels):
+    """Host-side: renumber labels to 1..K and return (labels, sizes).
+
+    sizes is ``[(label, voxel_count), ...]`` like the reference's
+    ``labelResult`` (generateVesselVolume.py:125-132, background included
+    as label 0).
+    """
+    labels = labels.cpu().numpy() if torch.is_tensor(labels) \
+        else np.asarray(labels)
+    uniq, inv = np.unique(labels, return_inverse=True)
+    compact = inv.reshape(labels.shape).astype(np.int32)
+    if uniq[0] != 0:
+        compact = compact + 1  # no background present
+    counts = np.bincount(compact.ravel())
+    label_result = list(zip(np.arange(len(counts)), counts))
+    return compact, label_result
+
+
+def label_volume(volume, min_size: int = 1, connectivity: int = 3,
+                 backend: str = "auto", device=None):
+    """API parity with the reference ``labelVolume``
+    (generateVesselVolume.py:107-136 / skeletonization.py:67-95): label the
+    volume, return (labeled, labelResult) with components smaller than
+    ``min_size`` excluded from labelResult.
+
+    backend="host" uses the native C++ flood fill (ops/native.py, or
+    scipy for connectivity 1); "device" and "auto" run
+    ``connected_components`` on ``device`` (the JAX package takes the host
+    only on a TPU, where gathers are slow).
+    """
+    if backend == "host":
+        if connectivity >= 2:
+            from .native import label_components_native
+            labeled, _ = label_components_native(volume)
+        else:
+            from scipy import ndimage
+            structure = ndimage.generate_binary_structure(3, 1)
+            labeled, _ = ndimage.label(np.asarray(volume) != 0,
+                                       structure=structure)
+            labeled = labeled.astype(np.int32)
+        counts = np.bincount(labeled.ravel())
+        label_result = [(int(l), int(c)) for l, c in enumerate(counts)]
+    else:
+        raw = connected_components(volume, connectivity=connectivity,
+                                   device=device)
+        labeled, label_result = compact_labels(raw)
+    filtered = [(int(l), int(s)) for l, s in label_result if s >= min_size]
+    return labeled, filtered
+
+
+def drop_small_components(volume, threshold: int = 150,
+                          connectivity: int = 3, device=None):
+    """Zero out connected components with <= threshold voxels (reference
+    main(), generateVesselVolume.py:195-199).  Host array in and out."""
+    vol = np.asarray(volume)
+    if (connectivity >= 2 and vol.dtype in (np.bool_, np.uint8)
+            and vol.max() <= 1):
+        # binary volume: single fused native pass (label + sizes + zero)
+        from .native import drop_small_components_native
+        return drop_small_components_native(vol, threshold).astype(vol.dtype)
+    labeled, label_result = label_volume(vol, connectivity=connectivity,
+                                         device=device)
+    sizes = np.zeros(max(l for l, _ in label_result) + 1, np.int64)
+    for lab, size in label_result:
+        sizes[lab] = size
+    keep = sizes > threshold
+    keep[0] = False
+    out = vol.copy()
+    out[~keep[labeled]] = 0
+    return out

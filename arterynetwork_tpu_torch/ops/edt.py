@@ -1,0 +1,111 @@
+"""Euclidean distance transform as vectorized PyTorch passes.
+
+Port of the JAX package's ops/edt.py (the reference's scipy
+``distance_transform_edt``, generateVesselVolume.py:183 and
+manualCorrectionGUI.py:243-249).  The exact 3D squared EDT is separable:
+per axis,
+
+    g(i) = min_j  f(j) + s^2 (i - j)^2
+
+evaluated directly in one of two forms:
+
+* **banded** (default): ``d = min_k shift(f, k) + s^2 k^2`` over
+  ``k in [-W, W]``, full-volume shifted minimums.  Exact wherever the
+  true distance is <= W voxels; distances beyond the band are clamped to
+  the band radius.
+* **exact** (``band=None``): blocked min-plus against the full quadratic
+  kernel, chunked over rows so each temporary stays near 256 MiB.
+
+Every finite value is an f32 sum of the constants ``s^2 k^2`` (each a
+Python float rounded once to f32, as the JAX program forms it) taken in
+the reference's axis order, so the result is bit-equal to the JAX
+package's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .region_grow import _as_device, _resolve_device
+
+_INF = 1e12
+_BLOCK = 64                 # output block of the exact min-plus
+_TEMP_BYTES = 1 << 28       # per exact-mode temporary
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded once to f32 (how the JAX program turns a
+    weakly typed constant into an f32 operand)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _axis_minplus_banded(f, axis, band, s2):
+    """min_k f(j+k) + s2*k^2 for |k| <= band (``_INF`` outside)."""
+    n = f.shape[axis]
+    band = min(band, n - 1)
+    shape = list(f.shape)
+    shape[axis] = n + 2 * band
+    fp = f.new_full(shape, _INF)
+    fp.narrow(axis, band, n).copy_(f)
+    out = f.new_full(f.shape, _INF)
+    tmp = torch.empty_like(f)
+    for i in range(2 * band + 1):
+        k = i - band
+        torch.add(fp.narrow(axis, i, n), _f32(s2 * (k * k)), out=tmp)
+        torch.minimum(out, tmp, out=out)
+    return out
+
+
+def _axis_minplus_exact(f, axis, s2):
+    """Exact min-plus with the quadratic kernel, blocked over outputs and
+    chunked over rows."""
+    f2 = f.movedim(axis, -1)
+    lead = f2.shape[:-1]
+    L = f2.shape[-1]
+    f2 = f2.reshape(-1, L)
+    j = torch.arange(L, device=f.device)
+    out = torch.empty_like(f2)
+    rows = max(1, _TEMP_BYTES // (4 * _BLOCK * L))
+    for b0 in range(0, L, _BLOCK):
+        i = torch.arange(b0, min(b0 + _BLOCK, L), device=f.device)
+        # s2 (i - j)^2 in f64, then rounded once to f32
+        q = (s2 * ((i[:, None] - j[None, :]) ** 2).double()).float()
+        for r0 in range(0, f2.shape[0], rows):
+            blk = f2[r0:r0 + rows, None, :] + q[None]
+            out[r0:r0 + rows, b0:b0 + len(i)] = blk.amin(dim=-1)
+    return out.reshape(lead + (L,)).movedim(-1, axis)
+
+
+def edt_squared(mask, band: int | None = 32, sampling=None, device=None):
+    """Squared Euclidean distance to the nearest background (zero) voxel,
+    f32 on ``device`` (by default the device of a ``mask`` tensor; host
+    arrays go to the card).
+
+    mask: nonzero = foreground (scipy ``distance_transform_edt``
+    semantics).  ``band=None`` computes the exact transform; an integer
+    band computes distances exactly up to ``band`` voxels per axis and
+    clamps beyond.  ``sampling``: optional per-axis spacing tuple.
+    """
+    device = _resolve_device(mask, device)
+    fg = _as_device(mask, device) != 0
+    if sampling is None:
+        sampling = (1.0,) * fg.dim()
+    d2 = torch.where(fg, _f32(_INF), 0.0).to(torch.float32)
+    for axis in range(fg.dim()):
+        s2 = float(sampling[axis]) ** 2
+        if band is None:
+            d2 = _axis_minplus_exact(d2, axis, s2)
+        else:
+            d2 = _axis_minplus_banded(d2, axis, band, s2)
+    if band is not None:
+        # clamp unreached voxels to the band radius
+        total = sum((float(sampling[a]) * band) ** 2
+                    for a in range(fg.dim()))
+        d2 = torch.clamp_max_(d2, _f32(total))
+    return d2
+
+
+def edt(mask, band: int | None = 32, sampling=None, device=None):
+    """Euclidean distance transform (sqrt of ``edt_squared``)."""
+    return torch.sqrt(edt_squared(mask, band=band, sampling=sampling,
+                                  device=device))

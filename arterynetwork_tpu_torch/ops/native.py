@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/ops/native.py; builds into build/native/ and has no jax EDT fallback.
+# Copy of arterynetwork_tpu/ops/native.py; builds into build/native/, and its distance-ordered thinning takes the port's ops/edt.py on a torch device.
 """ctypes binding for the native (C++) kernels.
 
 The shared library is built on demand from ``native/thinning.cpp`` with
@@ -360,13 +360,16 @@ def bounding_box(mask, margin: int = 1):
 
 def skeletonize_native(mask, distance_ordered: bool = True,
                        preserve_endpoints: bool = True,
-                       distance_transform=None) -> np.ndarray:
+                       distance_transform=None,
+                       device="cuda") -> np.ndarray:
     """Sequential distance-ordered thinning (C++).
 
     The volume is cropped to the foreground bounding box first: vessels
     occupy a small fraction of an MRA volume and the sequential passes
     scan the whole array.  ``distance_transform`` (unsquared EDT of the
-    full mask) may be shared from the pipeline to avoid recomputation."""
+    full mask) may be shared from the pipeline to avoid recomputation;
+    without it the distance order comes from the banded EDT of
+    ops/edt.py on the cropped box, computed on ``device``."""
     full = np.asarray(mask) != 0
     box = bounding_box(full, margin=2)
     vol = np.ascontiguousarray(full[box], dtype=np.uint8)
@@ -377,9 +380,9 @@ def skeletonize_native(mask, distance_ordered: bool = True,
             np.asarray(distance_transform)[box] ** 2, dtype=np.float32)
         d2_ptr = d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
     elif distance_ordered:
-        raise NotImplementedError(
-            "distance-ordered thinning without a distance_transform needs "
-            "the device EDT (ops/edt), which the port does not carry yet")
+        from .edt import edt_squared
+        d2 = edt_squared(vol, band=32, device=device).cpu().numpy()
+        d2_ptr = d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
     else:
         d2_ptr = ctypes.POINTER(ctypes.c_float)()
     lib.thin_volume(vol.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),

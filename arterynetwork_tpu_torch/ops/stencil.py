@@ -33,6 +33,12 @@ def dilate26(mask):
     return out
 
 
+def has_neighbor26(mask):
+    """True where a voxel has at least one 26-neighbour in ``mask``
+    (excluding the voxel itself)."""
+    return neighbor_count26(mask) > 0
+
+
 def neighbor_count26(mask):
     """Number of 26-neighbours of each voxel that are in ``mask``
     (excluding the voxel itself), int32."""

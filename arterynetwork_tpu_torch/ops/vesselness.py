@@ -1,7 +1,9 @@
 """Multiscale Frangi vesselness in PyTorch.
 
-Port of the JAX package's ops/vesselness.py, limited to what the streamed
-raw-volume path runs:
+Port of the JAX package's ops/vesselness.py: the streamed raw-volume
+driver (``frangi_vesselness_streamed``), the whole-volume filter
+(``frangi_vesselness``) and the halo'd z-slab driver for volumes too
+large for one pass (``frangi_vesselness_chunked``).  Per scale:
 
   1. gamma-normalized Hessian at each scale: Gaussian smoothing as three
      separable zero-padded passes (shifted-slice weighted sums in f32 —
@@ -13,11 +15,13 @@ raw-volume path runs:
   3. Frangi's tubularity measure (Ra, Rb, S with the alpha/beta/c weights);
   4. max over scales.
 
-The response pass (steps 2-4 from the smoothed field) is the Frangi-
-response kernel of ops/vesselness_fused.py: the hand-written CUDA kernel
-for tensors on a CUDA device, its plain PyTorch twin on the CPU.  Every x
-extent takes the kernel; there is no VMEM-size guard as on the TPU, and
-``VesselnessConfig.fused_response`` (a TPU dispatch switch) is not read.
+In the two slab drivers the response pass (steps 2-4 from the smoothed
+field) is the Frangi-response kernel of ops/vesselness_fused.py: the
+hand-written CUDA kernel for tensors on a CUDA device, its plain PyTorch
+twin on the CPU.  Every x extent takes the kernel; there is no VMEM-size
+guard as on the TPU, and ``VesselnessConfig.fused_response`` (a TPU
+dispatch switch) is not read.  ``frangi_vesselness`` is plain PyTorch
+ops throughout, as the JAX package's is XLA.
 """
 
 from __future__ import annotations
@@ -87,6 +91,13 @@ def _hessian_from_smoothed(sm, sigma: float):
             _d_shift(dx, 1, 1) * q)   # axes 1,2
 
 
+def hessian_at_scale(vol, sigma: float):
+    """gamma=1 normalized Hessian (zz, yy, xx, zy, zx, yx) of ``vol``:
+    Gaussian smoothing, then edge-replicated central differences of the
+    smoothed field (the derivative-of-smoothed formulation)."""
+    return _hessian_from_smoothed(_smooth(vol, float(sigma)), float(sigma))
+
+
 def symmetric_eigvals_3x3(a11, a22, a33, a12, a13, a23):
     """Eigenvalues of symmetric 3x3 matrices, ascending, elementwise
     (trigonometric closed form)."""
@@ -115,24 +126,32 @@ def symmetric_eigvals_3x3(a11, a22, a33, a12, a13, a23):
             torch.where(tiny, q, e1))  # ascending
 
 
-def _response_from_hessian(hs, alpha, beta, g, bright):
-    """Frangi tubularity from the Hessian components; ``g`` is the scale
-    weight (a 0-dim tensor from the S-max pass, or a float)."""
+def _sorted_eigvals(hs):
+    """Hessian eigenvalues sorted by |lambda| ascending (a 3-element
+    compare-swap network)."""
     a, b, c = symmetric_eigvals_3x3(*hs)
 
     def swap_if(cond, x, y):
         return torch.where(cond, y, x), torch.where(cond, x, y)
 
-    # sort by |lambda| with a 3-element compare-swap network
     a, b = swap_if(torch.abs(a) > torch.abs(b), a, b)
     b, c = swap_if(torch.abs(b) > torch.abs(c), b, c)
     a, b = swap_if(torch.abs(a) > torch.abs(b), a, b)
-    lam1, lam2, lam3 = a, b, c
+    return a, b, c
 
+
+def _norm(lam):
+    lam1, lam2, lam3 = lam
+    return torch.sqrt(lam1 * lam1 + lam2 * lam2 + lam3 * lam3)
+
+
+def _tubularity(lam, s, alpha, beta, g, bright):
+    """Frangi's measure from the sorted eigenvalues and their norm ``s``;
+    ``g`` is the scale weight (a 0-dim tensor or a float)."""
+    lam1, lam2, lam3 = lam
     eps = 1e-10
     ra = torch.abs(lam2) / (torch.abs(lam3) + eps)
     rb = torch.abs(lam1) / (torch.sqrt(torch.abs(lam2 * lam3)) + eps)
-    s = torch.sqrt(lam1 * lam1 + lam2 * lam2 + lam3 * lam3)
     v = ((1.0 - torch.exp(-(ra * ra) / (2 * alpha ** 2)))
          * torch.exp(-(rb * rb) / (2 * beta ** 2))
          * (1.0 - torch.exp(-(s * s) / (2 * (g * g) + eps))))
@@ -141,6 +160,19 @@ def _response_from_hessian(hs, alpha, beta, g, bright):
     else:
         keep = (lam2 > 0) & (lam3 > 0)
     return torch.where(keep, v, 0.0)
+
+
+def _response_from_hessian(hs, alpha, beta, g, bright):
+    """Frangi tubularity from the Hessian components; ``g`` is the scale
+    weight (a 0-dim tensor from the S-max pass, or a float)."""
+    lam = _sorted_eigvals(hs)
+    return _tubularity(lam, _norm(lam), alpha, beta, g, bright)
+
+
+def _scale_response(vol, sigma, alpha, beta, g, bright):
+    """Single-scale Frangi response given the scale weight ``g``."""
+    return _response_from_hessian(hessian_at_scale(vol, float(sigma)),
+                                  alpha, beta, g, bright)
 
 
 def _smax_chunk(volp, start, sigma, halo, chunk_z):
@@ -186,6 +218,80 @@ def _apply_chunk(best, volp, start, g, sigma, alpha, beta, bright,
     sm = _smooth(volp[start:start + chunk_z + 2 * halo], sigma)
     frangi_response_max_(best, start, sm, halo, chunk_z, sigma, g,
                          alpha, beta, bright)
+
+
+def frangi_vesselness(volume, sigmas=(1.0, 2.0, 3.0), alpha=0.5, beta=0.5,
+                      gamma=None, bright=True, device=None):
+    """Multiscale Frangi tubularity in [0, 1] of the whole volume at
+    once, on ``device`` (by default the device of a ``volume`` tensor;
+    host arrays go to the card).  With ``gamma=None`` each scale's weight
+    is ``0.5 * max(S)``, S the eigenvalue norm (not the Frobenius norm
+    the slab drivers take: the two round differently).  The faces
+    edge-replicate the smoothed field."""
+    from .region_grow import _as_device, _resolve_device
+
+    vol = _as_device(volume, _resolve_device(volume, device), torch.float32)
+    best = torch.zeros_like(vol)
+    for sigma in sigmas:
+        lam = _sorted_eigvals(hessian_at_scale(vol, float(sigma)))
+        s = _norm(lam)
+        g = gamma if gamma is not None else 0.5 * torch.max(s)
+        best = torch.maximum(best, _tubularity(lam, s, alpha, beta, g,
+                                               bright))
+    return best
+
+
+def frangi_vesselness_chunked(volume, sigmas=(1.0, 2.0, 3.0),
+                              alpha=0.5, beta=0.5, gamma=None,
+                              bright=True, chunk_z: int = 96,
+                              donate_input: bool = False,
+                              fused_response="auto", device=None):
+    """Multiscale Frangi for volumes whose full-grid temporaries do not
+    fit one pass: halo'd z slabs of ``chunk_z`` rows, each scale's
+    response folded into the running max by the Frangi-response kernel
+    K1 (its twin on the CPU), ``len(sigmas)`` launches per slab.  With
+    ``gamma=None`` the per-scale weight ``0.5 * max(S)`` (Frobenius S)
+    comes from a first chunked pass, which caches the slabs' smoothed
+    rows for the response pass.
+
+    Matches ``frangi_vesselness`` on interior z rows up to the two
+    response routes' rounding and the weight's norm; the two volume-face
+    rows differ more (the whole-volume differences edge-replicate the
+    smoothed field at the face, a slab sees the zero-padded tail).
+    ``donate_input`` and ``fused_response`` are accepted for the JAX
+    package's signature and not read: the caller's tensor is not freed,
+    and there is no switch that bypasses K1 on a card."""
+    from .region_grow import _as_device, _resolve_device
+
+    device = _resolve_device(volume, device)
+    vol = _as_device(volume, device, torch.float32)
+    Z = vol.shape[0]
+    shape_yx = tuple(vol.shape[1:])
+    halo = int(np.ceil(3.0 * max(sigmas))) + 1
+    n_chunks = -(-Z // chunk_z)
+    Zp = n_chunks * chunk_z
+    volp = F.pad(vol, (0, 0, 0, 0, halo, Zp - Z + halo))
+    del vol
+
+    starts = [c * chunk_z for c in range(n_chunks)]
+    best = torch.zeros((Zp,) + shape_yx, dtype=torch.float32, device=device)
+    for sigma in sigmas:
+        sigma = float(sigma)
+        if gamma is None:
+            smf = torch.zeros_like(volp)
+            parts = [_smax_chunk_cache(smf, volp, s, sigma, halo, chunk_z)
+                     for s in starts]
+            g = torch.max(torch.stack(parts)) * 0.5
+            for s in starts:
+                _apply_chunk_sm(best, smf, s, g, sigma, float(alpha),
+                                float(beta), bool(bright), halo, chunk_z)
+            del smf
+        else:
+            g = torch.tensor(gamma, dtype=torch.float32, device=device)
+            for s in starts:
+                _apply_chunk(best, volp, s, g, sigma, float(alpha),
+                             float(beta), bool(bright), halo, chunk_z)
+    return best[:Z]
 
 
 def _fma_f32(q, scale, offset):

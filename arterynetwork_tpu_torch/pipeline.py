@@ -1,23 +1,26 @@
 """End-to-end pipeline: raw MRA volume in -> vessel mask, centerline
 segments and a solved Hazen-Williams flow network out.
 
-Port of the JAX package's pipeline.py along its main path:
+Port of the JAX package's pipeline.py:
 
   raw volume -> vesselness      (ops/vesselness, on ``device``; the
                                  Frangi response is the CUDA kernel K1)
-             -> vessel mask     (thresholds and 2x any-pooled seeds on
+             -> vessel mask     (thresholds, the brain mask's boundary
+                                 suppression on a device EDT, the tip
+                                 extension and 2x any-pooled seeds on
                                  ``device``, then the native seeded flood
                                  fill on the host; or, given a seed mask,
                                  variational region growing on ``device``
                                  with the kernels K2 and K6)
-             -> EDT + thinning  (native C++, box-cropped)
+             -> EDT + thinning  (native C++, box-cropped; or, with
+                                 ``skeleton.backend="jax"``, the parallel
+                                 thinning of ops/thinning on ``device``)
              -> segments + branch attributes (numpy + native)
              -> FlowNetwork + Newton solve   (flow/, on ``device``)
 
 Every function takes an explicit ``device`` that its tensors live on.
-Not ported yet (they raise ``NotImplementedError``): brain masks, the
-tip extension, the networkx graph path, the JAX thinning backend, and
-the artifact store.
+Not ported yet (they raise ``NotImplementedError``): the networkx graph
+path (``flow.graph_path="nx"``); there is no artifact store argument.
 """
 
 from __future__ import annotations
@@ -59,6 +62,32 @@ def _threshold_plain(v, global_frac, margin=0):
     return keep
 
 
+def _near_boundary(v, brain, vmin, rng, near_frac, boundary_dist):
+    """Low-response voxels within ``boundary_dist`` of the brain mask's
+    boundary (generateVesselVolume.py:186-191), on ``v``'s device.
+
+    ``dist <= boundary_dist`` compares an f32 square root of an integer
+    squared distance, as the JAX package does.  At the default 10.0 this
+    is exact: the integer d2 nearest 100 are 99 and 101, whose roots
+    (9.9499, 10.0499) lie thousands of ulps from 10.0, so no rounding of
+    the root can move a voxel across the threshold."""
+    from .ops.edt import edt
+
+    dist = edt(brain, band=int(boundary_dist) + 2, device=v.device)
+    return (v <= vmin + near_frac * rng) & (dist <= boundary_dist)
+
+
+def _threshold_with_brain(v, brain, global_frac, near_frac, boundary_dist,
+                          margin=0):
+    vmin = torch.min(v)
+    rng = torch.max(v) - vmin
+    keep = v > vmin + global_frac * rng
+    keep &= ~_near_boundary(v, brain, vmin, rng, near_frac, boundary_dist)
+    if margin:
+        keep &= _border_core(v.shape, margin, v.device)
+    return keep
+
+
 def _any_pool2(m):
     """2x any-pooled mask, shape = ceil(shape / 2) (the format of the
     hysteresis strong seeds: exact component selection at 1/8 the bits,
@@ -77,6 +106,46 @@ def _threshold_hysteresis(v, vmin, rng, weak_frac, strong_frac, margin=0):
         weak &= core
         strong &= core
     return weak, _any_pool2(strong)
+
+
+def _threshold_hysteresis_brain(v, brain, vmin, rng, weak_frac,
+                                strong_frac, near_frac, boundary_dist,
+                                margin=0):
+    """Brain variant; also returns the near-boundary suppression mask so
+    downstream growth (tip extension) honors it."""
+    near = _near_boundary(v, brain, vmin, rng, near_frac, boundary_dist)
+    weak = (v > vmin + weak_frac * rng) & ~near
+    strong = (v > vmin + strong_frac * rng) & ~near
+    if margin:
+        core = _border_core(v.shape, margin, v.device)
+        weak &= core
+        strong &= core
+    return weak, _any_pool2(strong), near
+
+
+def _tip_extended_weak(v, weak, vmin, rng, tip_frac, iters, nbr_max,
+                       margin=0, exclude=None):
+    """Axial tip extension of the weak mask (thin-tip recall recovery).
+
+    The Frangi response decays at a vessel end, so the last voxels of a
+    thin branch fall below the weak floor while still carrying a ridge
+    response.  This grows the weak mask into the lower ``tip_frac``
+    floor only where the candidate touches between 1 and ``nbr_max``
+    mask voxels (an axial continuation beyond a tube end, not a lateral
+    halo), ``iters`` times.  ``exclude`` masks candidates out (the brain
+    path's near-boundary suppression binds the tip floor too)."""
+    from .ops.stencil import neighbor_count26
+
+    tip = v > vmin + tip_frac * rng
+    if exclude is not None:
+        tip &= ~exclude
+    if margin:
+        tip &= _border_core(v.shape, margin, v.device)
+    m = weak
+    for _ in range(iters):
+        nc = neighbor_count26(m)
+        m = m | (tip & (nc >= 1) & (nc <= nbr_max))
+    return m
 
 
 def vesselness_stage(raw_volume, config: Optional[PipelineConfig] = None,
@@ -108,24 +177,21 @@ def generate_vessel_mask(vesselness, brain_mask=None,
                          timings=None, device="cuda"):
     """Vesselness-filtered volume -> binary uint8 vessel mask (host).
 
-    Reference semantics (generateVesselVolume.py:186-199): global
-    threshold at ``global_threshold_fraction``, then drop components of
-    at most ``min_component_size`` voxels; or, with
+    Reference semantics (generateVesselVolume.py:186-199): with a
+    ``brain_mask``, zero voxels within ``boundary_distance_voxels`` of its
+    boundary whose vesselness is below ``near_boundary_fraction`` of the
+    range; global threshold at ``global_threshold_fraction``, then drop
+    components of at most ``min_component_size`` voxels; or, with
     ``weak_threshold_fraction`` set, keep the weak-threshold components
-    that hold a strong voxel (hysteresis).  ``vesselness`` may be a host
-    array or a tensor; the thresholds run on ``device``."""
+    that hold a strong voxel (hysteresis), the weak mask first extended
+    at vessel tips when ``tip_fraction`` is set.  ``vesselness`` and
+    ``brain_mask`` may be host arrays or tensors; the thresholds, the
+    brain mask's EDT and the tip extension run on ``device``."""
     from .ops.native import (drop_small_components_native,
                              hysteresis_components_ds2_packed_native)
     from .utils.transfer import pack_mask
 
     cfg = (config or PipelineConfig()).segmentation
-    if brain_mask is not None:
-        raise NotImplementedError(
-            "brain masks need the device EDT (ops/edt), not ported yet")
-    if cfg.tip_fraction is not None:
-        raise NotImplementedError(
-            "tip extension needs ops/stencil, not ported yet")
-
     v = torch.as_tensor(vesselness, dtype=torch.float32, device=device)
     margin = int(cfg.border_margin_voxels)
     if cfg.weak_threshold_fraction is not None:
@@ -138,9 +204,20 @@ def generate_vessel_mask(vesselness, brain_mask=None,
                 "subset of the weak mask for hysteresis selection)")
         vmin = torch.min(v)
         rng = torch.max(v) - vmin
-        weak, strong_ds = _threshold_hysteresis(
-            v, vmin, rng, cfg.weak_threshold_fraction,
-            cfg.global_threshold_fraction, margin)
+        near = None
+        if brain_mask is not None:
+            weak, strong_ds, near = _threshold_hysteresis_brain(
+                v, brain_mask, vmin, rng, cfg.weak_threshold_fraction,
+                cfg.global_threshold_fraction, cfg.near_boundary_fraction,
+                int(cfg.boundary_distance_voxels), margin)
+        else:
+            weak, strong_ds = _threshold_hysteresis(
+                v, vmin, rng, cfg.weak_threshold_fraction,
+                cfg.global_threshold_fraction, margin)
+        if cfg.tip_fraction is not None:
+            weak = _tip_extended_weak(
+                v, weak, vmin, rng, cfg.tip_fraction, int(cfg.tip_iters),
+                int(cfg.tip_neighbor_max), margin, exclude=near)
         # both masks cross to the host as packed bits, in one download
         t0 = time.perf_counter()
         wp_d, sp_d = pack_mask(weak), pack_mask(strong_ds)
@@ -154,7 +231,13 @@ def generate_vessel_mask(vesselness, brain_mask=None,
         if timings is not None:
             timings.add("segmentation_flood", time.perf_counter() - t0)
         return mask
-    keep = _threshold_plain(v, cfg.global_threshold_fraction, margin)
+    if brain_mask is not None:
+        keep = _threshold_with_brain(
+            v, brain_mask, cfg.global_threshold_fraction,
+            cfg.near_boundary_fraction, int(cfg.boundary_distance_voxels),
+            margin)
+    else:
+        keep = _threshold_plain(v, cfg.global_threshold_fraction, margin)
     n = keep.numel()
     bits = np.unpackbits(pack_mask(keep).cpu().numpy())[:n]
     mask = bits.reshape(tuple(keep.shape))
@@ -186,6 +269,26 @@ def compute_mask_edt(mask):
     dt = np.zeros(vv.shape, np.float32)
     dt[box] = edt_masked_native(vv[box])
     return dt
+
+
+def skeletonize_stage(mask, config=None, distance_transform=None,
+                      device="cuda"):
+    """Vessel mask (host) -> bool centerline skeleton (host) (C4).
+
+    ``skeleton.backend`` "native" (and "auto") thins on the host in C++;
+    "jax" runs the parallel subfield thinning of ops/thinning on
+    ``device``."""
+    cfg = (config or PipelineConfig()).skeleton
+    if cfg.backend in ("auto", "native"):
+        from .ops.native import skeletonize_native
+        return skeletonize_native(mask,
+                                  preserve_endpoints=cfg.preserve_endpoints,
+                                  distance_transform=distance_transform,
+                                  device=device)
+    from .ops.thinning import skeletonize
+    return skeletonize(np.asarray(mask), max_waves=cfg.max_waves,
+                       preserve_endpoints=cfg.preserve_endpoints,
+                       device=device).cpu().numpy()
 
 
 def graph_stage(skeleton, mask, config=None, distance_transform=None,
@@ -301,15 +404,14 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
     Entry points: a raw MRA volume (``raw_volume``; vesselness computed
     on ``device``) or a pre-filtered vesselness volume (``vesselness``).
     With a ``seed_mask`` the mask is grown from the seeds
-    (``refine_mask_region_grow``) in place of the threshold mask."""
+    (``refine_mask_region_grow``) in place of the threshold mask; a
+    ``brain_mask`` suppresses low responses near its boundary.  With
+    ``skeleton.backend="jax"`` the skeleton comes from the parallel
+    thinning on ``device`` (``skeletonize_stage``) on the full frame."""
     from .ops.native import (bounding_box, edt_masked_native,
                              skeletonize_native_cropped)
 
     config = config or PipelineConfig()
-    if config.skeleton.backend == "jax":
-        raise NotImplementedError(
-            "skeleton.backend='jax' (device thinning) is not ported yet; "
-            "use 'native' or 'auto'")
     if config.flow.graph_path == "nx":
         raise NotImplementedError(
             "flow.graph_path='nx' is not ported yet; use 'soa'")
@@ -332,27 +434,39 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
                                     timings=timings, device=device)
     timings.add("segmentation", time.perf_counter() - t0)
 
-    # box-coordinate fast path: crop once after the mask, run EDT +
-    # thinning + chain extraction on the cropped frame (squared EDT end
-    # to end), and emit full-frame coordinates only at the segment /
-    # skeleton boundaries
-    t0 = time.perf_counter()
-    box = bounding_box(mask, margin=2)
-    origin = tuple(int(s.start) for s in box)
-    # a fresh copy: the thinning below clobbers it in place
-    mask_box = np.array(mask[box], dtype=np.uint8, order="C")
-    d2_box = edt_masked_native(mask_box, squared=True)
-    timings.add("edt", time.perf_counter() - t0)
+    if config.skeleton.backend in ("auto", "native"):
+        # box-coordinate fast path: crop once after the mask, run EDT +
+        # thinning + chain extraction on the cropped frame (squared EDT
+        # end to end), and emit full-frame coordinates only at the
+        # segment / skeleton boundaries
+        t0 = time.perf_counter()
+        box = bounding_box(mask, margin=2)
+        origin = tuple(int(s.start) for s in box)
+        # a fresh copy: the thinning below clobbers it in place
+        mask_box = np.array(mask[box], dtype=np.uint8, order="C")
+        d2_box = edt_masked_native(mask_box, squared=True)
+        timings.add("edt", time.perf_counter() - t0)
 
-    t0 = time.perf_counter()
-    skel_work = skeletonize_native_cropped(
-        mask_box, d2_box,
-        preserve_endpoints=config.skeleton.preserve_endpoints,
-        clobber=True)
-    dt = np.sqrt(d2_box, out=d2_box)  # thinning consumed the squares
-    skeleton = np.zeros(mask.shape, bool)
-    skeleton[box] = skel_work
-    timings.add("skeletonization", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        skel_work = skeletonize_native_cropped(
+            mask_box, d2_box,
+            preserve_endpoints=config.skeleton.preserve_endpoints,
+            clobber=True)
+        dt = np.sqrt(d2_box, out=d2_box)  # thinning consumed the squares
+        skeleton = np.zeros(mask.shape, bool)
+        skeleton[box] = skel_work
+        timings.add("skeletonization", time.perf_counter() - t0)
+    else:
+        t0 = time.perf_counter()
+        dt = compute_mask_edt(mask)
+        origin = (0, 0, 0)
+        timings.add("edt", time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        skeleton = skeletonize_stage(mask, config, distance_transform=dt,
+                                     device=device)
+        skel_work = skeleton
+        timings.add("skeletonization", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     G, segments, attrs = graph_stage(skel_work, mask, config,

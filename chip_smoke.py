@@ -55,6 +55,25 @@ Phases, each printing its own lines:
                pipeline_512 phantom, seeded with the 3x3x3 cube at the
                tree's root: one warm-up and three timed runs, finite
                pressures and flows, at least one segment.
+     voxel_options_512 — pipeline_512 with a brain ellipsoid (semi-axes
+               250, 250, 82), the tip extension (0.015, 3 steps, <= 4
+               neighbours) and skeleton.backend "jax" (the device
+               thinning): one warm-up and three timed runs (44 K1
+               launches each), per-stage medians, centerline recall and
+               precision of this run and of the native thinning on the
+               same mask, peak device memory; then (a) the card's mask
+               equals the CPU's, (b) the banded EDT equals the native
+               exact EDT within its band and is clamped beyond, the exact
+               EDT equals it on a 128x128x170 crop, (c) the LUT thinning
+               equals the label-propagation thinning on the card (a ~2M
+               voxel crop), (d) the full-size skeleton lies in the mask,
+               has no deletable voxel left and as many 26-components, (e)
+               the simple-point table built on the card equals the native
+               predicate (2^20 sampled codes, and the native table on all
+               2^26), (f) connected_components gives the native partition,
+               (g) frangi_vesselness_chunked launches K1 once per slab and
+               scale, within K1's bound of its twin and, on interior rows,
+               of frangi_vesselness.
  11. flow_solvers — bench.py::bench_flow_large's 16k-edge tree (depth
                13, 8,190 unknowns) solved f32 at tol 1e-9 with "auto" and
                the elimination plan (tree) and with "cg", f64 "cg" at the
@@ -1074,6 +1093,302 @@ def phase_seeded_pipeline(phantom, raw):
     return counts
 
 
+BRAIN_AXES = (250, 250, 82)     # the voxel_options_512 brain ellipsoid
+CHUNK_Z = 96                    # frangi_vesselness_chunked's default
+THIN_CROP = (slice(200, 312), slice(200, 312), slice(0, 170))  # ~2.1M
+EXACT_CROP = (slice(0, 128), slice(0, 128), slice(0, 170))
+
+
+def _brain_ellipsoid(shape, axes):
+    """An ellipsoid centred in the volume with the given semi-axes."""
+    import numpy as np
+
+    c = (np.array(shape) - 1) / 2.0
+    z, y, x = np.ogrid[:shape[0], :shape[1], :shape[2]]
+    return (((z - c[0]) / axes[0]) ** 2 + ((y - c[1]) / axes[1]) ** 2
+            + ((x - c[2]) / axes[2]) ** 2) <= 1.0
+
+
+def _check(ok, phase, msg):
+    log(phase, f"{'ok' if ok else 'FAILED'}: {msg}")
+    if not ok:
+        raise SystemExit(f"{phase}: {msg}")
+
+
+def _same_partition(a, b):
+    """Two label volumes (0 = background) label the same voxels and
+    split them into the same components."""
+    import numpy as np
+
+    fa, fb = a != 0, b != 0
+    if not np.array_equal(fa, fb):
+        return False
+    pairs = np.unique(np.stack([a[fa], b[fb]]), axis=1)
+    return pairs.shape[1] == len(np.unique(a[fa])) == len(np.unique(b[fb]))
+
+
+def _deletable(skel):
+    """Voxels of ``skel`` that one more thinning step could delete:
+    simple (by label propagation over each voxel's neighbor planes) and
+    with at least two foreground neighbors."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops import simple_point, thinning
+
+    code = simple_point.neighborhood_codes(skel).reshape(-1)
+    idx = torch.nonzero(skel.reshape(-1)).reshape(-1)
+    c = code[idx]
+    simple = thinning._simple_from_planes(simple_point.code_bits(c).T)
+    return int((simple & ((c & (c - 1)) != 0)).sum())
+
+
+def phase_voxel_options(phantom, raw):
+    """pipeline_512's phantom and configuration with a brain ellipsoid,
+    the tip extension and the device thinning, and gates (a)-(g) on the
+    slice's modules."""
+    import importlib
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.ops import (cc, native, simple_point,
+                                             thinning, vesselness,
+                                             vesselness_fused)
+    from arterynetwork_tpu_torch.pipeline import (generate_vessel_mask,
+                                                  run_pipeline,
+                                                  vesselness_stage)
+    from arterynetwork_tpu_torch.utils.fidelity import tree_recovery_metrics
+
+    P = "voxel_options_512"
+    edt = importlib.import_module("arterynetwork_tpu_torch.ops.edt")
+    t_phase = time.perf_counter()
+    cfg = bench_config()
+    seg = cfg.segmentation
+    seg.tip_fraction, seg.tip_iters, seg.tip_neighbor_max = 0.015, 3, 4
+    cfg.skeleton.backend = "jax"
+    brain = _brain_ellipsoid(raw.shape, BRAIN_AXES)
+    torch.cuda.reset_peak_memory_stats()
+    totals, stages = [], []
+    for i in range(4):            # run 0 is the warm-up (builds the LUT)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run_pipeline(raw_volume=raw, brain_mask=brain, config=cfg,
+                              device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+        log(P, f"run {i}{' (warm-up)' if i == 0 else ''}: total "
+            f"{total:.4f} s; launches {counts}; stages (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        result["timings"].items()))
+        if counts["frangi_response"] != 44 or sum(counts.values()) != 44:
+            raise SystemExit(f"{P}: launches {counts}, expected K1 x 44")
+        if i:
+            totals.append(total)
+            stages.append(result["timings"])
+    pipe_k1 = counts["frangi_response"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+    mask, skel = result["mask"], result["skeleton"]
+    cfg_n = bench_config()
+    cfg_n.segmentation = seg
+    native_run = run_pipeline(raw_volume=raw, brain_mask=brain,
+                              config=cfg_n, device="cuda")
+    fid = {name: tree_recovery_metrics(r["segments"], r["attrs"], phantom)
+           for name, r in (("jax", result), ("native", native_run))}
+    sol = result["solution"]
+    finite = bool(torch.isfinite(sol.pressure).all()
+                  and torch.isfinite(sol.flow).all())
+    log(P, f"median total {statistics.median(totals):.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in totals)}); median stages (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+        + f"; mask voxels {int(mask.sum())}; skeleton voxels "
+        f"{int(skel.sum())}; segments {len(result['segments'])} (native "
+        f"{len(native_run['segments'])}); peak device memory {peak:.0f} "
+        f"MiB; pressures/flows finite {finite}")
+    for name, m in fid.items():
+        log(P, f"{name} thinning: centerline recall "
+            f"{m['centerline_recall']:.4f}, precision "
+            f"{m['centerline_precision']:.4f}, radius rmse "
+            f"{m['radius_rmse']:.4f}, segments {m['segments']} (phantom "
+            f"{m['gt_branches']} branches)")
+    _check(finite and len(result["segments"]) > 0, P,
+           "finite pressures and flows, at least one segment")
+    _check(np.array_equal(native_run["mask"], mask), P,
+           "the native-backend run has the same mask")
+
+    # (a) the card's brain + tip mask equals the CPU's
+    v = vesselness_stage(raw, cfg, device="cuda")
+    m_card = generate_vessel_mask(v, brain, cfg, device="cuda")
+    t0 = time.perf_counter()
+    m_cpu = generate_vessel_mask(v.cpu(), brain, cfg, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    cfg_plain = bench_config()
+    m_plain = generate_vessel_mask(v, None, cfg_plain, device="cuda")
+    _check(np.array_equal(m_card, m_cpu) and np.array_equal(m_card, mask),
+           P, f"(a) brain+tip mask on the card equals the CPU's (CPU "
+           f"{t_cpu:.1f} s) and the pipeline's; {int(m_card.sum())} voxels, "
+           f"{int((m_plain & ~m_card).sum())} removed and "
+           f"{int((m_card & ~m_plain).sum())} added against no brain mask "
+           f"and no tip extension")
+
+    # (b) banded EDT against the native exact EDT; exact mode on a crop
+    worst = []
+    for name, vol, band in (("brain mask", brain, 12),
+                            ("pipeline mask", mask, 32)):
+        ref = native.edt_native(vol, squared=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d2 = edt.edt_squared(torch.from_numpy(np.asarray(vol)).cuda(),
+                             band=band)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        d2 = d2.cpu().numpy()
+        clamp = 3 * band * band
+        inside, beyond = ref <= band * band, ref >= clamp
+        mid = ~inside & ~beyond
+        ok = (np.array_equal(d2[inside], ref[inside])
+              and bool((d2[beyond] == clamp).all())
+              and bool(((d2[mid] >= ref[mid]) & (d2[mid] <= clamp)).all()))
+        worst.append(ok)
+        log(P, f"(b) banded EDT, band {band}, {name}: {ms:.1f} ms; "
+            f"{int(inside.sum())} voxels within the band equal, "
+            f"{int(beyond.sum())} beyond the clamp at it, {int(mid.sum())} "
+            f"between: {ok}")
+    crop = np.ascontiguousarray(brain[EXACT_CROP])
+    ref = native.edt_native(crop, squared=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d2 = edt.edt_squared(torch.from_numpy(crop).cuda(), band=None)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    exact = np.array_equal(d2.cpu().numpy(), ref)
+    _check(all(worst) and exact, P, f"(b) banded EDT within its band and "
+           f"clamp; exact EDT of the {crop.shape} crop ({ms:.1f} ms, max d2 "
+           f"{float(ref.max()):.0f}) equal to the native EDT: {exact}")
+
+    # (c) LUT thinning against the plain label-propagation thinning, both
+    # on the card, on a crop of the pipeline mask
+    sub = torch.from_numpy(np.ascontiguousarray(mask[THIN_CROP])).cuda()
+    times = {}
+    outs = {}
+    for pred in ("lut", "labels"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[pred] = thinning.skeletonize(sub, predicate=pred)
+        torch.cuda.synchronize()
+        times[pred] = time.perf_counter() - t0
+    wall, busy, idle = device_idle(lambda: thinning.skeletonize(
+        torch.from_numpy(mask).cuda()))
+    log(P, f"full-size device thinning traced: {wall:.3f} s wall, "
+        f"{busy:.3f} s device busy, idle share {idle:.1%}")
+    _check(torch.equal(outs["lut"], outs["labels"]), P,
+           f"(c) LUT thinning equals label-propagation thinning on a "
+           f"{tuple(sub.shape)} crop ({int(sub.sum())} mask, "
+           f"{int(outs['lut'].sum())} skeleton voxels): {times['lut']:.3f} "
+           f"s against {times['labels']:.3f} s")
+
+    # (d) the full-size skeleton: inside the mask, thin, as many
+    # 26-components as the mask
+    sk = torch.from_numpy(skel).cuda()
+    n_del = _deletable(sk)
+    n_mask = native.label_components_native(mask)[1]
+    n_skel = native.label_components_native(skel)[1]
+    inside = not (skel & ~mask.astype(bool)).any()
+    _check(inside and n_del == 0 and n_mask == n_skel, P,
+           f"(d) skeleton inside the mask {inside}; deletable voxels left "
+           f"{n_del}; 26-components {n_skel} (mask {n_mask})")
+
+    # (e) the LUT built on the card against the native predicate
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            simple_point._CACHE_DIR)) as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lut = simple_point.build_simple_point_lut(cache_dir=tmp,
+                                                  device="cuda")
+        t_lut = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 1 << 26, 1 << 20)
+    sampled = np.array([native.simple_point_native(int(c)) for c in codes],
+                       np.uint8)
+    same_sampled = np.array_equal(simple_point.lut_lookup(lut, codes),
+                                  sampled)
+    native.get_lib()
+    with open(os.path.join(native._BUILD_DIR, "simple26.lut"), "rb") as f:
+        table = np.frombuffer(f.read()[8:], np.uint8)
+    same_all = np.array_equal(lut, table)
+    _check(same_sampled and same_all, P,
+           f"(e) LUT built on the card in {t_lut:.2f} s (simple share "
+           f"{float(np.unpackbits(lut).mean()):.4f}): equal to "
+           f"simple_point_native on 2^20 sampled codes {same_sampled}, "
+           f"to the native table on all 2^26 codes {same_all}")
+
+    # (f) components on the card against the native flood fill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lab64 = cc.connected_components(torch.from_numpy(mask).cuda())
+    r64 = cc.connected_components.rounds
+    lab = cc.connected_components(torch.from_numpy(mask).cuda(),
+                                  max_rounds=1 << 12)
+    torch.cuda.synchronize()
+    t_cc = time.perf_counter() - t0
+    rounds = cc.connected_components.rounds
+    ref, k = native.label_components_native(mask)
+    n64 = len(np.unique(lab64.cpu().numpy())) - 1
+    _check(_same_partition(lab.cpu().numpy(), ref), P,
+           f"(f) connected_components run to convergence ({rounds} rounds; "
+           f"both calls {t_cc:.2f} s) gives the native partition ({k} "
+           f"components); at the default 64 rounds ({r64} run) "
+           f"{n64} labels")
+
+    # (g) the chunked vesselness driver: K1 per slab and scale
+    sig = tuple(cfg.vesselness.sigmas)
+    vol = torch.from_numpy(raw).cuda()
+    n_chunks = -(-raw.shape[0] // CHUNK_Z)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunked = vesselness.frangi_vesselness_chunked(vol, sigmas=sig,
+                                                   chunk_z=CHUNK_Z)
+    torch.cuda.synchronize()
+    t_ch = time.perf_counter() - t0
+    counts = read_counts()
+    k1 = vesselness_fused.frangi_response_max_
+    vesselness_fused.frangi_response_max_ = \
+        vesselness_fused.frangi_response_plain_
+    try:
+        twin = vesselness.frangi_vesselness_chunked(vol, sigmas=sig,
+                                                    chunk_z=CHUNK_Z)
+    finally:
+        vesselness_fused.frangi_response_max_ = k1
+    if read_counts() != counts:
+        raise SystemExit(f"{P}: the twin run launched a kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = vesselness.frangi_vesselness(vol, sigmas=sig)
+    torch.cuda.synchronize()
+    t_wh = time.perf_counter() - t0
+    d_twin = (chunked - twin).abs()
+    ok_twin = bool((d_twin <= K1_TOL + 1e-4 * twin.abs()).all())
+    d_in = (chunked - whole).abs()[1:-1]
+    ok_in = bool((d_in <= K1_TOL + 1e-4 * whole.abs()[1:-1]).all())
+    face = float((chunked - whole).abs()[[0, -1]].max())
+    want = n_chunks * len(sig)
+    _check(counts["frangi_response"] == want and ok_twin and ok_in, P,
+           f"(g) frangi_vesselness_chunked {t_ch:.3f} s, K1 launches "
+           f"{counts['frangi_response']} (expected {n_chunks} chunks x "
+           f"{len(sig)} scales = {want}); against its twin on the card "
+           f"max|d| {float(d_twin.max()):.3e} within 1e-5 + 1e-4|ref| "
+           f"{ok_twin}; against frangi_vesselness ({t_wh:.3f} s) on "
+           f"interior rows max|d| {float(d_in.max()):.3e} within the same "
+           f"bound {ok_in}, face rows {face:.3e}")
+    log("timing", f"{P}: {time.perf_counter() - t_phase:.1f} s")
+    return {"pipeline": pipe_k1, "chunked": counts["frangi_response"]}
+
+
 FLOW_DEPTH = 13      # bench.py::bench_flow_large, "16k"
 STUDY_DEPTH = 10     # BraVa single-subject scale (~2k segments)
 LONG_T = 8           # longitudinal timesteps
@@ -1460,6 +1775,7 @@ def main():
     grown, ex = phase_region_grow_512(vol, seed)
     vmap = phase_value_map(vol, seed, ex)
     seeded = phase_seeded_pipeline(phantom, raw)
+    voxel = phase_voxel_options(phantom, raw)
     t_flow = time.perf_counter()
     for phase in (phase_flow_solvers, phase_longitudinal, phase_studies):
         t1 = time.perf_counter()
@@ -1471,7 +1787,10 @@ def main():
 
     paths = {"pipeline_512": {"frangi_response": launches},
              **{f"region_grow_512 {k}": v for k, v in grown.items()},
-             "value_map_512": vmap, "seeded_pipeline_512": seeded}
+             "value_map_512": vmap, "seeded_pipeline_512": seeded,
+             "voxel_options_512": {"frangi_response": voxel["pipeline"]},
+             "frangi_vesselness_chunked": {
+                 "frangi_response": voxel["chunked"]}}
     log("launches", json.dumps({p: {k: v for k, v in c.items() if v}
                                 for p, c in paths.items()}))
 
@@ -1480,7 +1799,10 @@ def main():
         "name": "frangi_response", "route": "cuda",
         "source": csrc + "frangi_response.cu",
         "replaces": "arterynetwork_tpu/ops/vesselness_fused.py:159",
-        "launches": launches, **k1}]
+        "launches": launches,
+        "launches_by_path": {p: c["frangi_response"] for p, c in
+                             paths.items() if c.get("frangi_response")},
+        **k1}]
     for name, source, replaces, n in (
             ("masked_histogram1", "histogram.cu",
              "arterynetwork_tpu/ops/pallas_kernels.py:124",

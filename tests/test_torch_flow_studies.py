@@ -478,6 +478,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "arterynetwork_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
+    assert {"edt.py", "cc.py", "thinning.py", "simple_point.py",
+            "fidelity.py"} <= {p.name for p in files}
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

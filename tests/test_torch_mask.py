@@ -63,10 +63,20 @@ def test_mask_matches_jax(vesselness, kind, crop):
 
 
 def test_unported_options_raise(vesselness):
-    cfg = convert.pipeline_config(_config("hysteresis"))
-    with pytest.raises(NotImplementedError):
-        generate_vessel_mask(vesselness, brain_mask=np.ones_like(vesselness),
-                             config=cfg, device="cpu")
-    cfg.segmentation.tip_fraction = 0.01
-    with pytest.raises(NotImplementedError):
-        generate_vessel_mask(vesselness, config=cfg, device="cpu")
+    """Brain masks and the tip extension, which raised until the device
+    EDT and stencils were ported, now run and equal the JAX package
+    (tests/test_torch_voxel_ops.py holds them on more fixtures)."""
+    jcfg = _config("hysteresis")
+    brain = np.ones_like(vesselness, dtype=np.uint8)
+    brain[:, :4] = 0
+    out = generate_vessel_mask(vesselness, brain_mask=brain,
+                               config=convert.pipeline_config(jcfg),
+                               device="cpu")
+    np.testing.assert_array_equal(
+        out, np.array(jax_mask(vesselness, brain_mask=brain, config=jcfg)))
+    jcfg.segmentation.tip_fraction = 0.01
+    out = generate_vessel_mask(vesselness,
+                               config=convert.pipeline_config(jcfg),
+                               device="cpu")
+    np.testing.assert_array_equal(
+        out, np.array(jax_mask(vesselness, config=jcfg)))

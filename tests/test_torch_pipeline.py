@@ -165,9 +165,6 @@ def test_seeded_run_pipeline_matches_jax():
 def test_unported_paths_raise():
     raw = _raw("tube")
     cfg = convert.pipeline_config(_bench_config("float64"))
-    with pytest.raises(NotImplementedError):
-        run_pipeline(raw_volume=raw, brain_mask=np.ones(raw.shape, bool),
-                     config=cfg, device="cpu")
     cfg.flow.graph_path = "nx"
     with pytest.raises(NotImplementedError):
         run_pipeline(raw_volume=raw, config=cfg, device="cpu")
