@@ -1,14 +1,14 @@
-# Copy of arterynetwork_tpu/flow/network_setup.py; load_network and convert_network raise (they need graphs/traversal).
+# Copy of arterynetwork_tpu/flow/network_setup.py; load_network reads networkx graphs in the pickles into graphs/voxel_graph's classes.
 """Network setup variants: the rest of the reference's FluidNetwork core
 (C13) — ``loadNetwork`` legacy ingestion (fluidSimulation.py:161-192),
-``convertNetowrk`` (:233-309, via graphs.traversal; both raise here
-until the networkx-free traversal is ported), ``adjustNetwork``
+``convertNetowrk`` (:233-309, via graphs.traversal), ``adjustNetwork``
 hand-set Circle-of-Willis dimensions (:311-350), and ``setNetwork``
 option 1: per-compartment BraVa radius fit + binned ADAN c/k (:352-399).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -165,19 +165,50 @@ def apply_darcy_weisbach(net: FlowNetwork,
 
 def load_network(directory: str, version: int = 4, year="BraVa") -> dict:
     """Load the reference's legacy artifact bundle (``loadNetwork``,
-    fluidSimulation.py:161-192).  Not ported yet: its consumer,
-    ``convert_network``, needs the networkx-free graph traversal."""
-    raise NotImplementedError(
-        "load_network waits for the port's networkx-free graph traversal "
-        "(graphs/traversal); use the JAX package's flow.network_setup")
+    fluidSimulation.py:161-192): the basicFilesForStructureWithCoW pickle
+    plus partitionInfo / chosenVoxelsForPartition / resultADANDict where
+    present.  Returns the loaded dict (reference ``loadedNetwork``).
+
+    The bundle's ``"G"`` is a pickled networkx graph; it is read into
+    graphs/voxel_graph's classes, without importing networkx."""
+    from ..graphs.voxel_graph import load_legacy_pickle
+
+    suffix = "" if version == 1 else str(version)
+    filename = "basicFilesForStructureWithCoW{}(year={}).pkl".format(
+        suffix, year)
+    result = load_legacy_pickle(os.path.join(directory, filename))
+    for key, name in (("partitionInfo", "partitionInfo.pkl"),
+                      ("chosenVoxels", "chosenVoxelsForPartition.pkl"),
+                      ("resultADANDict", "resultADANDict.pkl")):
+        path = os.path.join(directory, name)
+        if os.path.exists(path):
+            result[key] = load_legacy_pickle(path)
+    return result
 
 
 def convert_network(loaded: dict, root_coord=None,
                     spacing: float = 0.0004):
     """Legacy bundle -> FlowNetwork (``convertNetowrk``,
-    fluidSimulation.py:233-309).  Not ported yet: it reduces the voxel
-    graph with graphs/traversal, which imports networkx."""
-    raise NotImplementedError(
-        "convert_network waits for the port's networkx-free graph "
-        "traversal (graphs/traversal); use the JAX package's "
-        "flow.network_setup")
+    fluidSimulation.py:233-309): reduce the voxel graph so nodes are
+    terminating/bifurcating points, index nodes by increasing depthLevel
+    and edges by increasing depth, carry meanRadius/pathLength.
+
+    ``root_coord`` is the reference's ``heartLoc`` (entry voxel tuple);
+    defaults to a depth-0 node of the reduced graph.
+    Returns (FlowNetwork, node_of) like graphs.traversal."""
+    from ..graphs.traversal import reduce_graph, reduced_to_flow_network
+
+    G = loaded["G"]
+    segment_list = loaded["segmentList"]
+    seg_info = loaded.get("segmentInfoDict")
+    segment_indices = (list(seg_info.keys()) if seg_info
+                       else list(range(len(segment_list))))
+    DG = reduce_graph(G, segment_list, segment_indices)
+    if root_coord is None:
+        root_coord = min(DG.nodes(),
+                         key=lambda n: DG.nodes[n].get("depthLevel", 0))
+    net, node_of = reduced_to_flow_network(DG, tuple(root_coord), spacing)
+    adan = loaded.get("resultADANDict")
+    if adan:
+        net = set_network(net, option=2, adan=ADANModel.from_dict(adan))
+    return net, node_of

@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/graphs/branch_attrs.py: compute_branch_attrs and its helpers only.
+# Copy of arterynetwork_tpu/graphs/branch_attrs.py; the voxel graph is graphs/voxel_graph's Graph and the EDT runs on ``device``.
 """Branch attribute computation (reference C7: ``calculateBranchInfo``,
 manualCorrectionGUI.py:215-415).
 
@@ -24,7 +24,10 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
 from numpy.linalg import norm
+
+from . import voxel_graph as vg
 
 
 def _path_metrics(segment):
@@ -197,3 +200,59 @@ def compute_branch_attrs(segments_old: Sequence[Sequence],
 def _keys(coords, shape):
     c = np.asarray(coords, np.int64)
     return (c[:, 0] * shape[1] + c[:, 1]) * shape[2] + c[:, 2]
+
+
+def calculate_branch_info(segments_old: Sequence[Sequence],
+                          segments_new: Sequence[Sequence],
+                          vessel_volume=None,
+                          distance_transform=None,
+                          device="cuda") -> vg.Graph:
+    """Build the attributed voxel graph for ``segments_new``.
+
+    Either ``vessel_volume`` (mask; its box-cropped EDT computed here on
+    ``device``) or a precomputed full-frame ``distance_transform`` must
+    be given.  Node ``radius`` and the edge attributes are Python floats
+    and ints.
+    """
+    if distance_transform is None:
+        if vessel_volume is None:
+            raise ValueError("need vessel_volume or distance_transform")
+        from ..ops.edt import edt
+        from ..ops.native import bounding_box
+
+        vv = np.asarray(vessel_volume) != 0
+        box = bounding_box(vv, margin=2)
+        dt_full = np.zeros(vv.shape, np.float32)
+        dt_full[box] = edt(torch.from_numpy(np.ascontiguousarray(vv[box])),
+                           device=device).cpu().numpy()
+        distance_transform = dt_full
+    dt = np.asarray(distance_transform)
+
+    attrs = compute_branch_attrs(segments_old, segments_new, dt)
+
+    G = vg.Graph()
+    for idx, seg in enumerate(segments_new):
+        segt = [tuple(int(x) for x in v) for v in seg]
+        G.add_edges_from(zip(segt[:-1], segt[1:]), **attrs[idx])
+
+    coords = np.asarray([n for n in G.nodes()], np.int64)
+    if len(coords):
+        radii = dt[tuple(coords.T)].astype(float)
+        vg.set_node_attributes(
+            G, {tuple(c): float(r)
+                for c, r in zip(coords.tolist(), radii)}, "radius")
+    return G
+
+
+def _set_branch(G, seg, idx, path_length, euclidean, tortuosity,
+                mean_radius, sigma=None):
+    attrs = dict(pathLength=float(path_length),
+                 eculideanLength=float(euclidean),
+                 tortuosity=float(tortuosity),
+                 voxelLength=int(len(seg)),
+                 meanRadius=float(mean_radius),
+                 segmentIndex=int(idx))
+    if sigma is not None:
+        attrs["sigma"] = float(sigma)
+    for a, b in zip(seg[:-1], seg[1:]):
+        G.add_edge(a, b, **attrs)

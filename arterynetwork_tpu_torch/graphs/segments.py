@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/graphs/segments.py; networkx is imported inside the two nx-building functions.
+# Copy of arterynetwork_tpu/graphs/segments.py; the voxel graphs are graphs/voxel_graph's classes, not networkx's.
 """Centerline segments and the voxel-level vessel graph.
 
 Host-side counterpart of the reference's segment post-processing
@@ -22,6 +22,8 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from . import voxel_graph as vg
 
 Voxel = Tuple[int, int, int]
 
@@ -239,13 +241,11 @@ def extract_segments_fast(skeleton) -> List[List[Voxel]]:
     return _chains_to_tuple_segments(chains, uniq, shape)
 
 
-def skeleton_to_voxel_graph(skeleton) -> nx.Graph:
+def skeleton_to_voxel_graph(skeleton) -> vg.Graph:
     """26-adjacency graph over skeleton voxels (nodes are voxel tuples)."""
-    import networkx as nx
-
     skeleton = np.asarray(skeleton)
     coords = {tuple(int(v) for v in c) for c in np.argwhere(skeleton)}
-    G = nx.Graph()
+    G = vg.Graph()
     G.add_nodes_from(coords)
     for (z, y, x) in coords:
         for (dz, dy, dx) in _NEIGHBOR_OFFSETS:
@@ -255,7 +255,7 @@ def skeleton_to_voxel_graph(skeleton) -> nx.Graph:
     return G
 
 
-def extract_segments(G: nx.Graph) -> List[List[Voxel]]:
+def extract_segments(G: vg.Graph) -> List[List[Voxel]]:
     """Partition a voxel graph into simple branches.
 
     Every edge belongs to exactly one chain; chains break at voxels with
@@ -309,18 +309,16 @@ def extract_segments(G: nx.Graph) -> List[List[Voxel]]:
     return segments
 
 
-def segments_to_graph(segments: Sequence[Sequence[Voxel]]) -> nx.Graph:
+def segments_to_graph(segments: Sequence[Sequence[Voxel]]) -> vg.Graph:
     """Voxel graph with per-edge ``segmentIndex`` (skeletonization.py:765-769)."""
-    import networkx as nx
-
-    G = nx.Graph()
+    G = vg.Graph()
     for idx, seg in enumerate(segments):
         segt = [tuple(v) for v in seg]
         G.add_edges_from(zip(segt[:-1], segt[1:]), segmentIndex=idx)
     return G
 
 
-def validate_segment(G: nx.Graph, segment: Sequence[Voxel]) -> bool:
+def validate_segment(G: vg.Graph, segment: Sequence[Voxel]) -> bool:
     """True iff the segment is a simple branch (skeletonization.py:649-680)."""
     degrees = [G.degree(v) for v in segment]
     if len(degrees) < 2:
@@ -673,7 +671,6 @@ def prune_junction_bridges(chains, n, radius, coords=None,
     voxels) are never candidates; anything cut in error is restorable
     with the editing engine, exactly as the reference resolves kissing
     vessels manually."""
-    import networkx as nx
     for _ in range(iterations):
         if not chains:
             break
@@ -683,7 +680,7 @@ def prune_junction_bridges(chains, n, radius, coords=None,
                                len(chains))])
         deg = np.bincount(ends, minlength=n)
         lens, means = _chain_mean_radius(chains, radius)
-        Gm = nx.MultiGraph()
+        Gm = vg.MultiGraph()
         for i, c in enumerate(chains):
             Gm.add_edge(c[0], c[-1], key=i)
         cand = [i for i, c in enumerate(chains)
@@ -708,7 +705,7 @@ def prune_junction_bridges(chains, n, radius, coords=None,
             if not Gm.has_edge(u, v, key=i):
                 continue
             Gm.remove_edge(u, v, key=i)
-            if not nx.has_path(Gm, u, v):
+            if not vg.has_path(Gm, u, v):
                 Gm.add_edge(u, v, key=i)
                 continue
             if cover_tree is not None and len(chains[i]) > 2:

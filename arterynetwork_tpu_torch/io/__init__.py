@@ -1,4 +1,4 @@
-"""Artifact store and NIfTI volume I/O (numpy; networkx only for graphml)."""
+"""Artifact store (graphml, segment lists, pickles) and NIfTI volume I/O."""
 
 from .artifacts import (ArtifactStore, combine_skeleton_segments,
                         read_tabb_segment_file)

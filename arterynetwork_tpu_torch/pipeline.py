@@ -16,11 +16,15 @@ Port of the JAX package's pipeline.py:
                                  ``skeleton.backend="jax"``, the parallel
                                  thinning of ops/thinning on ``device``)
              -> segments + branch attributes (numpy + native)
-             -> FlowNetwork + Newton solve   (flow/, on ``device``)
+             -> voxel graph     (graphs/voxel_graph's classes, host; with
+                                 ``flow.graph_path="nx"`` or a store)
+             -> FlowNetwork + Newton solve   (flow/, on ``device``; from
+                                 the segments, or with "nx" through the
+                                 voxel graph's BFS and reduction)
 
 Every function takes an explicit ``device`` that its tensors live on.
-Not ported yet (they raise ``NotImplementedError``): the networkx graph
-path (``flow.graph_path="nx"``); there is no artifact store argument.
+Each stage optionally writes its artifact through an ArtifactStore under
+the reference's file names, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -149,12 +153,13 @@ def _tip_extended_weak(v, weak, vmin, rng, tip_frac, iters, nbr_max,
 
 
 def vesselness_stage(raw_volume, config: Optional[PipelineConfig] = None,
-                     timings=None, device="cuda"):
+                     store=None, affine=None, timings=None, device="cuda"):
     """Raw MRA volume (host) -> Frangi vesselness (tensor on ``device``).
 
     With a ``timings`` struct, the upload-bound and compute-bound phases
     are attributed separately (``vesselness_upload`` /
-    ``vesselness_compute``)."""
+    ``vesselness_compute``).  A ``store`` gets vesselnessFiltered.nii.gz
+    (float32)."""
     from .ops.vesselness import frangi_vesselness_streamed
 
     cfg = (config or PipelineConfig()).vesselness
@@ -169,12 +174,16 @@ def vesselness_stage(raw_volume, config: Optional[PipelineConfig] = None,
     if timings is not None:
         timings.add("vesselness_upload", t_up)
         timings.add("vesselness_compute", t_comp)
+    if store is not None:
+        store.save_nifti("vesselnessFiltered.nii.gz", v.cpu().numpy(),
+                         affine=affine, astype=np.float32)
     return v
 
 
 def generate_vessel_mask(vesselness, brain_mask=None,
                          config: Optional[PipelineConfig] = None,
-                         timings=None, device="cuda"):
+                         store=None, affine=None, timings=None,
+                         device="cuda"):
     """Vesselness-filtered volume -> binary uint8 vessel mask (host).
 
     Reference semantics (generateVesselVolume.py:186-199): with a
@@ -186,7 +195,8 @@ def generate_vessel_mask(vesselness, brain_mask=None,
     that hold a strong voxel (hysteresis), the weak mask first extended
     at vessel tips when ``tip_fraction`` is set.  ``vesselness`` and
     ``brain_mask`` may be host arrays or tensors; the thresholds, the
-    brain mask's EDT and the tip extension run on ``device``."""
+    brain mask's EDT and the tip extension run on ``device``.  A ``store``
+    gets vesselVolumeMask.nii.gz (uint8)."""
     from .ops.native import (drop_small_components_native,
                              hysteresis_components_ds2_packed_native)
     from .utils.transfer import pack_mask
@@ -230,18 +240,23 @@ def generate_vessel_mask(vesselness, brain_mask=None,
             wp, tuple(weak.shape), sp, min_size=cfg.min_component_size)
         if timings is not None:
             timings.add("segmentation_flood", time.perf_counter() - t0)
-        return mask
-    if brain_mask is not None:
-        keep = _threshold_with_brain(
-            v, brain_mask, cfg.global_threshold_fraction,
-            cfg.near_boundary_fraction, int(cfg.boundary_distance_voxels),
-            margin)
     else:
-        keep = _threshold_plain(v, cfg.global_threshold_fraction, margin)
-    n = keep.numel()
-    bits = np.unpackbits(pack_mask(keep).cpu().numpy())[:n]
-    mask = bits.reshape(tuple(keep.shape))
-    return drop_small_components_native(mask, cfg.min_component_size)
+        if brain_mask is not None:
+            keep = _threshold_with_brain(
+                v, brain_mask, cfg.global_threshold_fraction,
+                cfg.near_boundary_fraction,
+                int(cfg.boundary_distance_voxels), margin)
+        else:
+            keep = _threshold_plain(v, cfg.global_threshold_fraction,
+                                    margin)
+        n = keep.numel()
+        bits = np.unpackbits(pack_mask(keep).cpu().numpy())[:n]
+        mask = drop_small_components_native(
+            bits.reshape(tuple(keep.shape)), cfg.min_component_size)
+    if store is not None:
+        store.save_nifti("vesselVolumeMask.nii.gz", mask, affine=affine,
+                         astype=np.uint8)
+    return mask
 
 
 def refine_mask_region_grow(vesselness, seed_mask, config=None,
@@ -271,36 +286,49 @@ def compute_mask_edt(mask):
     return dt
 
 
-def skeletonize_stage(mask, config=None, distance_transform=None,
-                      device="cuda"):
+def skeletonize_stage(mask, config=None, store=None, affine=None,
+                      distance_transform=None, device="cuda"):
     """Vessel mask (host) -> bool centerline skeleton (host) (C4).
 
     ``skeleton.backend`` "native" (and "auto") thins on the host in C++;
     "jax" runs the parallel subfield thinning of ops/thinning on
-    ``device``."""
+    ``device``.  A ``store`` gets skeleton.nii.gz (uint8)."""
     cfg = (config or PipelineConfig()).skeleton
     if cfg.backend in ("auto", "native"):
         from .ops.native import skeletonize_native
-        return skeletonize_native(mask,
+        skel = skeletonize_native(mask,
                                   preserve_endpoints=cfg.preserve_endpoints,
                                   distance_transform=distance_transform,
                                   device=device)
-    from .ops.thinning import skeletonize
-    return skeletonize(np.asarray(mask), max_waves=cfg.max_waves,
-                       preserve_endpoints=cfg.preserve_endpoints,
-                       device=device).cpu().numpy()
+    else:
+        from .ops.thinning import skeletonize
+        skel = skeletonize(np.asarray(mask), max_waves=cfg.max_waves,
+                           preserve_endpoints=cfg.preserve_endpoints,
+                           device=device).cpu().numpy()
+    if store is not None:
+        store.save_nifti("skeleton.nii.gz", skel.astype(np.uint8),
+                         affine=affine, astype=np.uint8)
+    return skel
 
 
-def graph_stage(skeleton, mask, config=None, distance_transform=None,
+def graph_stage(skeleton, mask, config=None, store=None,
+                distance_transform=None, build_nx: bool = True,
                 origin=(0, 0, 0)):
     """Skeleton -> simple-branch segments + branch attributes (C5/C6/C7).
 
-    Returns (None, segments, attrs): the voxel-level networkx graph of the
-    JAX package's ``build_nx=True`` is not built (the flow path reads
-    ``segments`` and ``attrs`` only).  ``skeleton`` and
-    ``distance_transform`` may be box-cropped with ``origin`` = box start;
-    emitted segments carry full-frame coordinates."""
-    from .graphs.branch_attrs import compute_branch_attrs
+    Returns (G, segments, attrs).  ``build_nx=False`` skips the voxel-
+    level graph (G is None) unless a ``store`` is given: the SoA flow
+    path reads ``segments`` and ``attrs`` only; the voxel graph
+    (graphs/voxel_graph.Graph, built by ``calculate_branch_info``) serves
+    the "nx" flow path, the graphml artifact, the editing engine and the
+    morphology.  A ``store`` gets segmentList.npz and
+    graphRepresentationCleanedWithEdgeInfo.graphml.
+
+    ``skeleton`` and ``distance_transform`` may be box-cropped with
+    ``origin`` = box start; emitted segments carry full-frame
+    coordinates."""
+    from .graphs.branch_attrs import (calculate_branch_info,
+                                      compute_branch_attrs)
     from .graphs.segments import skeleton_to_segments
 
     cfg = (config or PipelineConfig()).skeleton
@@ -323,26 +351,66 @@ def graph_stage(skeleton, mask, config=None, distance_transform=None,
         bridge_max_len=cfg.bridge_max_len)
     attrs = compute_branch_attrs(segments, segments, distance_transform,
                                  origin=origin)
-    return None, segments, attrs
+    G = None
+    if build_nx or store is not None:
+        dt_full = np.asarray(distance_transform)
+        if any(origin):
+            full = np.zeros(np.asarray(mask).shape, np.float32)
+            sl = tuple(slice(int(o), int(o) + s)
+                       for o, s in zip(origin, dt_full.shape))
+            full[sl] = dt_full
+            dt_full = full
+        G = calculate_branch_info(segments, segments,
+                                  distance_transform=dt_full)
+    if store is not None:
+        store.save_segment_list("segmentList.npz", segments)
+        store.save_graphml("graphRepresentationCleanedWithEdgeInfo.graphml",
+                           G)
+    return G, segments, attrs
 
 
-def flow_stage_soa(segments, attrs, root, config=None,
+def flow_stage_soa(segments, attrs, root, config=None, store=None,
                    boundary_pressure=None, ground_truth_option=2, rng=None,
                    device="cuda"):
-    """Segments + branch attrs -> FlowNetwork -> solved flows, without a
-    networkx graph (graphs/soa_path.py)."""
+    """Segments + branch attrs -> FlowNetwork -> solved flows, without
+    the voxel graph (graphs/soa_path.py)."""
     from .graphs.soa_path import segments_to_flow_network
 
     cfg = (config or PipelineConfig()).flow
     net, node_of = segments_to_flow_network(segments, attrs, root,
                                             spacing=cfg.spacing)
-    return _solve_network(net, node_of, cfg,
+    return _solve_network(net, node_of, cfg, store=store,
                           boundary_pressure=boundary_pressure,
                           ground_truth_option=ground_truth_option, rng=rng,
                           device=device)
 
 
-def _solve_network(net, node_of, cfg, boundary_pressure=None,
+def flow_stage(G, segments, root, config=None, store=None,
+               boundary_pressure=None, ground_truth_option=2, rng=None,
+               device="cuda"):
+    """Attributed voxel graph -> reduced FlowNetwork -> solved flows
+    (C12-C17): BFS from ``root`` over G (annotating it in place), the
+    reached segments collapsed to one directed edge each."""
+    from .graphs.traversal import (partition_bfs, reduce_graph,
+                                   reduced_to_flow_network)
+
+    cfg = (config or PipelineConfig()).flow
+    partition_bfs(G, [root], [])
+    # solve the connected component containing the root: drop segments the
+    # BFS never reached (the reference also works per component,
+    # graphRelated.py:93-95)
+    reached = [i for i, seg in enumerate(segments)
+               if all("depthLevel" in G.nodes[tuple(v)] for v in
+                      (seg[0], seg[-1]))]
+    DG = reduce_graph(G, segments, reached)
+    net, node_of = reduced_to_flow_network(DG, root, spacing=cfg.spacing)
+    return _solve_network(net, node_of, cfg, store=store,
+                          boundary_pressure=boundary_pressure,
+                          ground_truth_option=ground_truth_option, rng=rng,
+                          device=device)
+
+
+def _solve_network(net, node_of, cfg, store=None, boundary_pressure=None,
                    ground_truth_option=2, rng=None, device="cuda"):
     from .flow.adan import set_network_ck
     from .flow.ground_truth import create_ground_truth
@@ -389,15 +457,24 @@ def _solve_network(net, node_of, cfg, boundary_pressure=None,
     sol = solve_pressure_newton(system, max_iter=cfg.max_iter, tol=cfg.tol,
                                 linear_solver=cfg.linear_solver, plan=plan,
                                 restarts=cfg.restarts)
-    net = net.replace(node_pressure=sol.pressure.cpu().numpy(),
-                      edge_flow=sol.flow.cpu().numpy(),
-                      edge_velocity=sol.velocity.cpu().numpy())
+    pressure, flow, velocity = (sol.pressure.cpu().numpy(),
+                                sol.flow.cpu().numpy(),
+                                sol.velocity.cpu().numpy())
+    net = net.replace(node_pressure=pressure, edge_flow=flow,
+                      edge_velocity=velocity)
+    if store is not None:
+        store.save_pickle("fluidSimulationResult.pkl", {
+            "pressure": pressure,
+            "flow": flow,
+            "velocity": velocity,
+            "node_of": {str(k): int(v) for k, v in node_of.items()},
+        })
     return net, sol, node_of
 
 
 def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
                  root=None, config: Optional[PipelineConfig] = None,
-                 raw_volume=None, device="cuda"):
+                 store=None, affine=None, raw_volume=None, device="cuda"):
     """Full volume -> flow pipeline on ``device``.  Returns a result dict
     with the intermediate artifacts (host arrays) and per-stage timings.
 
@@ -407,21 +484,23 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
     (``refine_mask_region_grow``) in place of the threshold mask; a
     ``brain_mask`` suppresses low responses near its boundary.  With
     ``skeleton.backend="jax"`` the skeleton comes from the parallel
-    thinning on ``device`` (``skeletonize_stage``) on the full frame."""
+    thinning on ``device`` (``skeletonize_stage``) on the full frame.
+    ``flow.graph_path="nx"`` solves through the voxel graph
+    (``flow_stage``), "soa" from the segments (``flow_stage_soa``).  A
+    ``store`` (io.artifacts.ArtifactStore) gets every stage's artifact
+    under the reference's names, ``affine`` in the NIfTI headers."""
     from .ops.native import (bounding_box, edt_masked_native,
                              skeletonize_native_cropped)
 
     config = config or PipelineConfig()
-    if config.flow.graph_path == "nx":
-        raise NotImplementedError(
-            "flow.graph_path='nx' is not ported yet; use 'soa'")
     timings = StageTimings()
 
     if vesselness is None:
         if raw_volume is None:
             raise ValueError("provide raw_volume or vesselness")
         t0 = time.perf_counter()
-        vesselness = vesselness_stage(raw_volume, config, timings=timings,
+        vesselness = vesselness_stage(raw_volume, config, store=store,
+                                      affine=affine, timings=timings,
                                       device=device)
         timings.add("vesselness", time.perf_counter() - t0)
 
@@ -431,6 +510,7 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
                                           device=device)
     else:
         mask = generate_vessel_mask(vesselness, brain_mask, config,
+                                    store=store, affine=affine,
                                     timings=timings, device=device)
     timings.add("segmentation", time.perf_counter() - t0)
 
@@ -455,6 +535,9 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
         dt = np.sqrt(d2_box, out=d2_box)  # thinning consumed the squares
         skeleton = np.zeros(mask.shape, bool)
         skeleton[box] = skel_work
+        if store is not None:
+            store.save_nifti("skeleton.nii.gz", skeleton.astype(np.uint8),
+                             affine=affine, astype=np.uint8)
         timings.add("skeletonization", time.perf_counter() - t0)
     else:
         t0 = time.perf_counter()
@@ -463,14 +546,16 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
         timings.add("edt", time.perf_counter() - t0)
 
         t0 = time.perf_counter()
-        skeleton = skeletonize_stage(mask, config, distance_transform=dt,
+        skeleton = skeletonize_stage(mask, config, store=store,
+                                     affine=affine, distance_transform=dt,
                                      device=device)
         skel_work = skeleton
         timings.add("skeletonization", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    G, segments, attrs = graph_stage(skel_work, mask, config,
-                                     distance_transform=dt, origin=origin)
+    G, segments, attrs = graph_stage(
+        skel_work, mask, config, store=store, distance_transform=dt,
+        build_nx=(config.flow.graph_path == "nx"), origin=origin)
     timings.add("graph", time.perf_counter() - t0)
 
     if root is None:
@@ -486,8 +571,12 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
         root = min(tips, key=lambda v: v[2])
 
     t0 = time.perf_counter()
-    net, sol, node_of = flow_stage_soa(segments, attrs, root, config,
-                                       device=device)
+    if G is not None and config.flow.graph_path == "nx":
+        net, sol, node_of = flow_stage(G, segments, root, config,
+                                       store=store, device=device)
+    else:
+        net, sol, node_of = flow_stage_soa(segments, attrs, root, config,
+                                           store=store, device=device)
     timings.add("flow", time.perf_counter() - t0)
 
     return {

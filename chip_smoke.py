@@ -74,6 +74,20 @@ Phases, each printing its own lines:
                (g) frangi_vesselness_chunked launches K1 once per slab and
                scale, within K1's bound of its twin and, on interior rows,
                of frangi_vesselness.
+     graph_path_512 — pipeline_512 with flow.graph_path "nx" (the voxel
+               graph, its BFS and reduction on the host): one warm-up and
+               three timed runs (44 K1 launches each) with per-stage
+               times and the f32 difference from the soa route, then one
+               run with an artifact store, each write timed; gates (a)
+               nx = soa at f64 on the card on the segments the nx
+               reduction keeps (it collapses parallel arcs, as the
+               reference's reduceGraph does; the others must be such
+               arcs): nodes, edges by coordinates, radius and length,
+               pressures within 1e-9, (b) every file
+               of the JAX store's route written and read back equal to
+               the run, (c) the CLI's `morpho --no-figures` on the store,
+               (d) networkx, jax and matplotlib never imported, (e) K1 x
+               44 per run.
  11. flow_solvers — bench.py::bench_flow_large's 16k-edge tree (depth
                13, 8,190 unknowns) solved f32 at tol 1e-9 with "auto" and
                the elimination plan (tree) and with "cg", f64 "cg" at the
@@ -1389,6 +1403,275 @@ def phase_voxel_options(phantom, raw):
     return {"pipeline": pipe_k1, "chunked": counts["frangi_response"]}
 
 
+GRAPH_STORE_FILES = ("fluidSimulationResult.pkl",
+                     "graphRepresentationCleanedWithEdgeInfo.graphml",
+                     "segmentList.npz", "skeleton.nii.gz",
+                     "vesselVolumeMask.nii.gz", "vesselnessFiltered.nii.gz")
+MORPHO_FILES = ("segmentInfoDict.pkl", "nodeInfoDict.pkl",
+                "partitionInfo.pkl", "chosenVoxelsForPartition.pkl",
+                "segmentListCleaned.npz",
+                "graphRepresentationCleanedWithAdvancedInfo.graphml")
+
+
+def _edge_set(net, node_of):
+    """A network's edges by their end coordinates, radius and length
+    (rounded to 1e-6), as a sorted list."""
+    coord = {i: c for c, i in node_of.items()}
+    return sorted((coord[int(h)], coord[int(t)], round(float(r), 6),
+                   round(float(ln), 6))
+                  for h, t, r, ln in zip(net.heads, net.tails, net.radius,
+                                         net.length))
+
+
+def _coord_rel(sol_a, of_a, sol_b, of_b):
+    """max |p_a - p_b| / max |p_b| over the coordinates both hold."""
+    import numpy as np
+
+    common = [c for c in of_a if c in of_b]
+    pa = sol_a.pressure.cpu().numpy()[[of_a[c] for c in common]]
+    pb = sol_b.pressure.cpu().numpy()[[of_b[c] for c in common]]
+    return float(np.max(np.abs(pa - pb)) / np.max(np.abs(pb))), len(common)
+
+
+def _root_of(segments):
+    """run_pipeline's inlet: the lowest-x terminal endpoint."""
+    counts = {}
+    for seg in segments:
+        for v in (tuple(seg[0]), tuple(seg[-1])):
+            counts[v] = counts.get(v, 0) + 1
+    return min((v for v, c in counts.items() if c == 1), key=lambda v: v[2])
+
+
+def phase_graph_path(phantom, raw):
+    """pipeline_512 with flow.graph_path="nx": the voxel graph, its BFS
+    and reduction on the host, K1 on the card; timed runs, a run with the
+    artifact store (each write timed), and gates (a)-(e)."""
+    import contextlib
+    import copy
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.__main__ import main as cli
+    from arterynetwork_tpu_torch.graphs import voxel_graph as vg
+    from arterynetwork_tpu_torch.io.artifacts import ArtifactStore
+    from arterynetwork_tpu_torch.pipeline import (flow_stage,
+                                                  flow_stage_soa,
+                                                  run_pipeline)
+
+    P = "graph_path_512"
+    t_phase = time.perf_counter()
+    cfg = bench_config()
+    cfg.flow.graph_path = "nx"
+    torch.cuda.reset_peak_memory_stats()
+    totals, stages, launches = [], [], []
+    for i in range(4):            # run 0 is the warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run_pipeline(raw_volume=raw, config=cfg, device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+        launches.append(counts["frangi_response"])
+        log(P, f"run {i}{' (warm-up)' if i == 0 else ''}: total "
+            f"{total:.4f} s; K1 launches {counts['frangi_response']}; "
+            "stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       result["timings"].items()))
+        # (e) K1 launches exactly 44 times per run, and nothing else
+        if counts["frangi_response"] != 44 or sum(counts.values()) != 44:
+            raise SystemExit(f"{P}: launches {counts}, expected K1 x 44")
+        if i:
+            totals.append(total)
+            stages.append(result["timings"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+    G, segments, attrs = result["graph"], result["segments"], result["attrs"]
+    sol = result["solution"]
+    root = _root_of(segments)
+    # the soa route on the segments the nx reduction keeps (gate (a))
+    kept32 = sorted(int(i) for i in result["network"].edge_segment_index)
+    soa32 = flow_stage_soa([segments[i] for i in kept32],
+                           [attrs[i] for i in kept32], root, cfg,
+                           device="cuda")
+    rel32, _ = _coord_rel(sol, result["node_of"], soa32[1], soa32[2])
+    log(P, f"median total {statistics.median(totals):.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in totals)}); median stages (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+        + f"; skeleton voxels {int(result['skeleton'].sum())}; voxel graph "
+        f"{len(G)} nodes; segments {len(segments)}; flow edges "
+        f"{result['network'].num_edges}; f32 pressures against the soa "
+        f"route on the kept segments {rel32:.3e} relative; peak device "
+        f"memory {peak:.0f} MiB")
+    _check(bool(torch.isfinite(sol.pressure).all()
+                and torch.isfinite(sol.flow).all()) and len(segments) > 0,
+           P, "finite pressures and flows, at least one segment")
+
+    # (a) nx against soa at f64 on the card.  The reduction collapses
+    # parallel arcs (two segments joining one pair of junctions) into one
+    # edge, as the reference's reduceGraph and the JAX package's do; the
+    # soa route keeps each.  So the routes agree on the segments the nx
+    # route keeps, and the others must be such parallel arcs.
+    cfg64 = copy.deepcopy(cfg)
+    cfg64.flow.dtype = "float64"
+    t0 = time.perf_counter()
+    net_n, sol_n, of_n = flow_stage(G, segments, root, cfg64,
+                                    device="cuda")
+    t_nx = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net_a, _, _ = flow_stage_soa(segments, attrs, root, cfg64,
+                                 device="cuda")
+    t_soa = time.perf_counter() - t0
+    kept = sorted(int(i) for i in net_n.edge_segment_index)
+    extra = sorted(set(int(i) for i in net_a.edge_segment_index)
+                   - set(kept))
+    ends = [frozenset((tuple(sg[0]), tuple(sg[-1]))) for sg in segments]
+    kept_ends = {ends[i] for i in kept}
+    parallel = (set(kept) <= set(int(i) for i in net_a.edge_segment_index)
+                and all(ends[i] in kept_ends for i in extra))
+    net_s, sol_s, of_s = flow_stage_soa(
+        [segments[i] for i in kept], [attrs[i] for i in kept], root, cfg64,
+        device="cuda")
+    rel64, n_common = _coord_rel(sol_n, of_n, sol_s, of_s)
+    _check(parallel and net_n.num_nodes == net_s.num_nodes
+           and _edge_set(net_n, of_n) == _edge_set(net_s, of_s)
+           and n_common == net_n.num_nodes and rel64 <= 1e-9, P,
+           f"(a) f64 nx route ({t_nx:.4f} s; soa {t_soa:.4f} s): "
+           f"{net_n.num_nodes} nodes, {net_n.num_edges} edges; the soa "
+           f"route's {net_a.num_edges} edges less {len(extra)} parallel "
+           f"arcs give the same edges by coordinates, radius and length "
+           f"and pressures within {rel64:.3e} relative (bound 1e-9)")
+
+    # (b) the artifact store: each write timed, each file read back
+    class TimedStore(ArtifactStore):
+        """Times each write and keeps what each volume write was given."""
+
+        def __init__(self, base_dir):
+            super().__init__(base_dir)
+            self.write_s, self.volumes, self.graphs = {}, {}, {}
+
+        def _timed(self, name, write, *args, **kwargs):
+            t0 = time.perf_counter()
+            write(name, *args, **kwargs)
+            self.write_s[name] = (self.write_s.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+
+        def save_nifti(self, name, volume, *args, **kwargs):
+            self.volumes[name] = np.array(volume)
+            self._timed(name, super().save_nifti, volume, *args, **kwargs)
+
+        def save_graphml(self, name, graph):
+            # the flow stage annotates the graph after it is written
+            self.graphs[name] = copy.deepcopy(graph)
+            self._timed(name, super().save_graphml, graph)
+
+        def save_segment_list(self, name, segs):
+            self._timed(name, super().save_segment_list, segs)
+
+        def save_pickle(self, name, obj):
+            self._timed(name, super().save_pickle, obj)
+
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        store = TimedStore(os.path.join(tmp, "store"))
+        affine = np.diag([0.5, 0.5, 0.5, 1.0])
+        reset_counts()
+        t0 = time.perf_counter()
+        stored = run_pipeline(raw_volume=raw, config=cfg, store=store,
+                              affine=affine, device="cuda")
+        torch.cuda.synchronize()
+        t_store = time.perf_counter() - t0
+        k1_store = read_counts()["frangi_response"]
+        sizes = {n: os.path.getsize(store.path(n)) for n in GRAPH_STORE_FILES
+                 if store.exists(n)}
+        log(P, f"store run {t_store:.4f} s (stages (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        stored["timings"].items())
+            + "); writes (s, MB): " + ", ".join(
+                f"{n} {store.write_s.get(n, 0):.4f} "
+                f"{sizes.get(n, 0) / 1e6:.2f}" for n in GRAPH_STORE_FILES))
+        _check(sorted(os.listdir(store.base_dir)) == list(GRAPH_STORE_FILES)
+               and k1_store == 44, P,
+               f"(b) the store holds {len(sizes)} files, the JAX store's "
+               f"names on this route; K1 {k1_store} launches")
+        t0 = time.perf_counter()
+        same = {}
+        for name, run_arr in (("vesselnessFiltered.nii.gz", None),
+                              ("vesselVolumeMask.nii.gz", stored["mask"]),
+                              ("skeleton.nii.gz", stored["skeleton"])):
+            back, aff = store.load_nifti(name)
+            given = store.volumes[name]
+            ok = (np.array_equal(back, given) and np.array_equal(aff, affine)
+                  and back.dtype == (np.float32 if run_arr is None
+                                     else np.uint8))
+            if run_arr is not None:
+                ok = ok and np.array_equal(back, run_arr.astype(np.uint8))
+            same[name] = ok
+        same["segmentList.npz"] = \
+            store.load_segment_list("segmentList.npz") == stored["segments"]
+        res = store.load_pickle("fluidSimulationResult.pkl")
+        ssol = stored["solution"]
+        same["fluidSimulationResult.pkl"] = (
+            np.array_equal(res["pressure"], ssol.pressure.cpu().numpy())
+            and np.array_equal(res["flow"], ssol.flow.cpu().numpy())
+            and np.array_equal(res["velocity"],
+                               ssol.velocity.cpu().numpy())
+            and res["node_of"] == {str(k): int(v) for k, v in
+                                   stored["node_of"].items()})
+        # writing and reading each re-add the edges in edges() order (the
+        # relabelled copies of networkx's relabel_nodes), so the loaded
+        # graph is the written one relabelled; that rule is idempotent
+        name = "graphRepresentationCleanedWithEdgeInfo.graphml"
+        back = store.load_graphml(name)
+        want = vg.relabel_nodes(store.graphs[name], {})
+
+        def typed(g):
+            return ([(v, d, [type(x) for x in d.values()])
+                     for v, d in g.nodes(data=True)],
+                    [(v, [(u, d, [type(x) for x in d.values()])
+                          for u, d in g.adj[v].items()]) for v in g])
+
+        same[name] = (list(want.nodes()) == list(stored["graph"].nodes())
+                      and typed(back) == typed(want))
+        _check(all(same.values()) and len(same) == len(GRAPH_STORE_FILES),
+               P, f"(b) every file reads back equal to the run "
+               f"({time.perf_counter() - t0:.2f} s): {same}")
+
+        # (c) the CLI's morphology driver on the store, in this process
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli(["morpho", store.base_dir, "--no-figures", "--device",
+                 "cuda"])
+        t_morpho = time.perf_counter() - t0
+        stats = json.loads(out.getvalue())
+        seg_info = store.load_pickle("segmentInfoDict.pkl")
+        n_curved = sum("maxCurvatureAveragedInmm" in v
+                       for v in seg_info.values())
+        overall = stats["statisticsPerPartition"]["Overall"]
+        _check(all(store.exists(n) for n in MORPHO_FILES)
+               and overall["numBranches"] >= 1 and n_curved >= 1, P,
+               f"(c) morpho --no-figures {t_morpho:.2f} s: the bundle "
+               f"under the reference's names, Overall.numBranches "
+               f"{overall['numBranches']}, partitions "
+               f"{sorted(stats['statisticsPerPartition'])}, curvature on "
+               f"{n_curved} of {len(seg_info)} segments")
+
+    # (d) the slice never imported networkx, JAX or matplotlib
+    loaded = sorted({m.split(".")[0] for m in sys.modules
+                     if m.split(".")[0] in ("networkx", "jax", "matplotlib")
+                     and sys.modules[m] is not None})
+    _check(not loaded, P, f"(d) networkx, jax, matplotlib not imported "
+           f"({loaded or 'none'})")
+    _check(all(n == 44 for n in launches), P,
+           f"(e) K1 launches per run {launches}")
+    log(P, f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches[-1]
+
+
 FLOW_DEPTH = 13      # bench.py::bench_flow_large, "16k"
 STUDY_DEPTH = 10     # BraVa single-subject scale (~2k segments)
 LONG_T = 8           # longitudinal timesteps
@@ -1776,6 +2059,7 @@ def main():
     vmap = phase_value_map(vol, seed, ex)
     seeded = phase_seeded_pipeline(phantom, raw)
     voxel = phase_voxel_options(phantom, raw)
+    graph_k1 = phase_graph_path(phantom, raw)
     t_flow = time.perf_counter()
     for phase in (phase_flow_solvers, phase_longitudinal, phase_studies):
         t1 = time.perf_counter()
@@ -1789,6 +2073,7 @@ def main():
              **{f"region_grow_512 {k}": v for k, v in grown.items()},
              "value_map_512": vmap, "seeded_pipeline_512": seeded,
              "voxel_options_512": {"frangi_response": voxel["pipeline"]},
+             "graph_path_512": {"frangi_response": graph_k1},
              "frangi_vesselness_chunked": {
                  "frangi_response": voxel["chunked"]}}
     log("launches", json.dumps({p: {k: v for k, v in c.items() if v}

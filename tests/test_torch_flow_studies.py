@@ -132,7 +132,7 @@ def test_perturbations_exact():
             pperturb.interpolate_radii(net.radius, radius_end, 4, option))
 
 
-def test_network_setup_exact():
+def test_network_setup_exact(tmp_path):
     from arterynetwork_tpu.flow import network_setup as jns
     from arterynetwork_tpu_torch.flow import network_setup as pns
 
@@ -157,10 +157,36 @@ def test_network_setup_exact():
     a2 = J.set_network_ck(a.replace(radius=a.radius * 0.9))
     b2 = P.set_network_ck(b.replace(radius=b.radius * 0.9))
     assert np.array_equal(a2.k, b2.k) and _rel(b2.c, a2.c) <= 4.5e-16
-    with pytest.raises(NotImplementedError):
-        pns.load_network("unused")
-    with pytest.raises(NotImplementedError):
-        pns.convert_network({})
+    # load_network / convert_network (once unported, they raised): a
+    # legacy bundle whose voxel graph networkx pickled gives the JAX
+    # package's network, with the bundle's ADAN dict applied
+    import pickle
+
+    import networkx as nx
+
+    G = nx.Graph()
+    segs = [[(0, 0, z) for z in range(4)],
+            [(0, 0, 3), (0, 1, 4), (0, 2, 5)],
+            [(0, 0, 3), (1, 0, 4), (2, 0, 5)]]
+    for i, seg in enumerate(segs):
+        for u, v in zip(seg[:-1], seg[1:]):
+            G.add_edge(u, v, segmentIndex=i, meanRadius=2.0 - 0.5 * i,
+                       pathLength=float(len(seg) - 1))
+    for v in G.nodes():
+        G.nodes[v]["depthLevel"] = 0 if v[2] <= 3 and v[:2] == (0, 0) \
+            else 1
+    with open(tmp_path / "basicFilesForStructureWithCoW(year=BraVa).pkl",
+              "wb") as f:
+        pickle.dump({"G": G, "segmentList": segs}, f)
+    with open(tmp_path / "resultADANDict.pkl", "wb") as f:
+        pickle.dump({"slopeCRadius": -100.0, "interceptCRadius": 1.2,
+                     "CKCandidates": np.array([0.9, 1.852]),
+                     "radiusThresholds": np.array([0.5e-3, 3e-3])}, f)
+    a, oa = jns.convert_network(jns.load_network(str(tmp_path), version=1))
+    b, ob = pns.convert_network(pns.load_network(str(tmp_path), version=1))
+    assert oa == ob and b.num_edges == 3
+    for f in ("heads", "tails", "node_depth", "radius", "length", "c", "k"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_physics_matches_jax():
@@ -470,27 +496,58 @@ def _forbidden(name):
     return top in ("jax", "arterynetwork_tpu")
 
 
+def _optional(name):
+    """Packages the port must not need: networkx (allowed only in the
+    interop method ``FlowNetwork.to_networkx``) and matplotlib."""
+    return name.split(".")[0] in ("networkx", "matplotlib")
+
+
+def _imports(tree):
+    """(lineno, module name, enclosing function name or None) of every
+    absolute import in a module's AST."""
+    out = []
+
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                walk(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                out.extend((child.lineno, a.name, fn) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                out.append((child.lineno, child.module or "", fn))
+            walk(child, fn)
+
+    walk(tree, None)
+    return out
+
+
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports JAX or the
     JAX package (by the import statements' AST, so comments and strings
     naming the source do not count; ``arterynetwork_tpu_torch`` is not
-    ``arterynetwork_tpu``)."""
+    ``arterynetwork_tpu``); none imports networkx or matplotlib, except
+    networkx inside ``FlowNetwork.to_networkx`` (graphs/network.py)."""
     files = sorted((REPO / "arterynetwork_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
     assert {"edt.py", "cc.py", "thinning.py", "simple_point.py",
-            "fidelity.py"} <= {p.name for p in files}
-    bad = []
+            "fidelity.py", "voxel_graph.py", "traversal.py", "editing.py",
+            "curvature.py", "__main__.py"} <= {p.name for p in files}
+    bad, optional = [], []
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            bad += [f"{path.name}:{node.lineno} {n}" for n in names
-                    if _forbidden(n)]
+        for line, name, fn in _imports(ast.parse(path.read_text(),
+                                                 str(path))):
+            where = f"{path.relative_to(REPO)}:{line} {name}"
+            if _forbidden(name):
+                bad.append(where)
+            elif _optional(name):
+                optional.append((where, fn))
     assert not bad, bad
+    allowed = [w for w, fn in optional
+               if fn == "to_networkx" and "graphs/network.py" in w]
+    assert len(allowed) == 1, optional
+    assert [o for o in optional if o[0] not in allowed] == []
     assert _forbidden("arterynetwork_tpu.flow") and _forbidden("jax.numpy")
     assert not _forbidden("arterynetwork_tpu_torch.flow")
+    assert _optional("networkx.readwrite") and _optional("matplotlib.pyplot")

@@ -11,8 +11,9 @@ tree.  Tolerances (values measured on a CPU in brackets):
 The seeded entry (``seed_mask``: variational region growing in place of
 the threshold mask) is held to the JAX package on tests/test_pipeline.py's
 Y phantom: the same mask and segments, pressures and flows to 1e-9 at
-f64.  A last test runs the port in a fresh interpreter in which ``jax``
-and ``networkx`` cannot be imported, as on a machine without either.
+f64.  ``flow.graph_path="nx"`` equals the soa route.  A last test runs
+the port in a fresh interpreter in which ``jax``, ``networkx`` and
+``matplotlib`` cannot be imported, as on a machine without them.
 """
 
 import os
@@ -101,7 +102,8 @@ def test_run_pipeline_matches_jax(kind, dtype, tol):
 
 def test_graph_stage_full_frame_matches_jax():
     """graph_stage without a given distance transform computes the EDT
-    itself (full frame, origin 0)."""
+    itself (full frame, origin 0); with ``build_nx`` (the default) it
+    also builds the JAX package's voxel graph."""
     from arterynetwork_tpu.pipeline import graph_stage as jax_graph_stage
     from arterynetwork_tpu.pipeline import compute_mask_edt, \
         skeletonize_stage
@@ -115,12 +117,18 @@ def test_graph_stage_full_frame_matches_jax():
                              distance_transform=compute_mask_edt(mask))
     _, ref_segs, ref_attrs = jax_graph_stage(skel, mask, cfg,
                                              build_nx=False)
-    G, segs, attrs = graph_stage(skel, mask,
-                                 convert.pipeline_config(cfg))
+    G, segs, attrs = graph_stage(skel, mask, convert.pipeline_config(cfg),
+                                 build_nx=False)
     assert G is None and len(segs) >= 5
     assert [list(map(tuple, s)) for s in segs] == \
         [list(map(tuple, s)) for s in ref_segs]
     assert attrs == ref_attrs
+    # build_nx defaults to True, as in the JAX package: the voxel graph
+    ref_G = jax_graph_stage(skel, mask, cfg)[0]
+    G = graph_stage(skel, mask, convert.pipeline_config(cfg))[0]
+    assert list(G.nodes(data=True)) == list(ref_G.nodes(data=True))
+    assert [(v, list(G.adj[v].items())) for v in G.nodes()] == \
+        [(v, list(ref_G.adj[v].items())) for v in ref_G.nodes()]
 
 
 def _y_phantom(shape=(48, 48, 64), noise=0.02, seed=0):
@@ -163,17 +171,25 @@ def test_seeded_run_pipeline_matches_jax():
 
 
 def test_unported_paths_raise():
+    """``flow.graph_path="nx"`` (once unported, it raised) runs through
+    the voxel graph and gives the soa route's network and solution."""
     raw = _raw("tube")
     cfg = convert.pipeline_config(_bench_config("float64"))
+    soa = run_pipeline(raw_volume=raw, config=cfg, device="cpu")
     cfg.flow.graph_path = "nx"
-    with pytest.raises(NotImplementedError):
-        run_pipeline(raw_volume=raw, config=cfg, device="cpu")
+    out = run_pipeline(raw_volume=raw, config=cfg, device="cpu")
+    assert soa["graph"] is None and out["graph"] is not None
+    assert out["segments"] == soa["segments"]
+    assert out["network"].num_edges == soa["network"].num_edges >= 1
+    assert _rel(out["solution"].pressure.numpy(),
+                soa["solution"].pressure.numpy()) <= 1e-9
 
 
 _WITHOUT_JAX = """
 import sys
-sys.modules["jax"] = None        # any import of jax now fails
-sys.modules["networkx"] = None
+bundle_dir, out_dir = sys.argv[1], sys.argv[2]
+for name in ("jax", "networkx", "matplotlib"):
+    sys.modules[name] = None     # any import of these now fails
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -211,17 +227,68 @@ grown.append(region_grow_frontier(v, seed, max_segment_size=50000,
                                   device="cpu"))
 assert all(torch.equal(g.segmented_map, grown[0].segmented_map)
            for g in grown) and int(grown[0].segmented_count) > 500
+
+# the voxel-graph route with the artifact store, its graphml read back
+from arterynetwork_tpu_torch.io.artifacts import ArtifactStore
+cfg.flow.graph_path = "nx"
+store = ArtifactStore(out_dir)
+n = run_pipeline(raw_volume=raw, config=cfg, store=store, device="cpu")
+assert n["segments"] == r["segments"]
+G = store.load_graphml("graphRepresentationCleanedWithEdgeInfo.graphml")
+assert list(G.nodes()) == list(n["graph"].nodes())
+assert [list(G.neighbors(v)) for v in G.nodes()] == \
+    [list(n["graph"].neighbors(v)) for v in G.nodes()]
+
+# a legacy bundle pickled by networkx, loaded and converted
+from arterynetwork_tpu_torch.flow.network_setup import (convert_network,
+                                                        load_network)
+loaded = load_network(bundle_dir)
+net, node_of = convert_network(loaded, root_coord=(0, 0, 0))
+assert type(loaded["G"]).__module__.startswith("arterynetwork_tpu_torch")
+assert net.num_edges == 3 and net.num_nodes == 4
+
+# the morphology driver on the store
+from arterynetwork_tpu_torch.__main__ import main
+main(["morpho", out_dir, "--no-figures", "--device", "cpu"])
+assert store.exists("segmentInfoDict.pkl")
+
 assert not [m for m in sys.modules
-            if m.split(".")[0] in ("jax", "networkx", "arterynetwork_tpu")
+            if m.split(".")[0] in ("jax", "networkx", "matplotlib",
+                                   "arterynetwork_tpu")
             and sys.modules[m] is not None]
 print("ran without jax")
 """
 
 
-def test_port_runs_without_jax_or_networkx():
+def test_port_runs_without_jax_or_networkx(tmp_path):
+    """A fresh interpreter in which jax, networkx and matplotlib cannot be
+    imported runs the port: both masks' pipelines, the growers, the
+    voxel-graph route with the store, a legacy bundle that networkx
+    pickled (here, in this process) and ``morpho --no-figures``."""
+    import pickle
+
+    import networkx as nx
+
+    G = nx.Graph()
+    segs = [[(0, 0, z) for z in range(4)],
+            [(0, 0, 3), (0, 1, 4), (0, 2, 5)],
+            [(0, 0, 3), (1, 0, 4), (2, 0, 5)]]
+    for i, seg in enumerate(segs):
+        for a, b in zip(seg[:-1], seg[1:]):
+            G.add_edge(a, b, segmentIndex=i, meanRadius=2.0 - 0.5 * i,
+                       pathLength=float(len(seg) - 1))
+    for v in G.nodes():
+        G.nodes[v]["depthLevel"] = 0 if v[2] <= 3 and v[:2] == (0, 0) \
+            else 1
+    G.nodes, G.adj                 # cached views in the pickle
+    with open(tmp_path / "basicFilesForStructureWithCoW4(year=BraVa).pkl",
+              "wb") as f:
+        pickle.dump({"G": G, "segmentList": segs,
+                     "segmentInfoDict": {0: {}, 1: {}, 2: {}}}, f)
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _WITHOUT_JAX], cwd=REPO,
-                          env=env, capture_output=True, text=True,
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_JAX,
+                           str(tmp_path), str(tmp_path / "store")],
+                          cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ran without jax" in proc.stdout
