@@ -14,6 +14,13 @@
 // seg, bins and out share one layout: element (z, y, x) at z*sZ + y*sY + x,
 // so a padded buffer is swept over its valid region in place of a copy.
 //
+// An interior window [z0, z1) x [y0, y1) x [x0, x1) of the region limits
+// what is written and counted: the rule still reads every voxel of the
+// region (the planes z0 - 1 and z1 and the rows y0 - 1 and y1 where they
+// exist), but only window voxels may flip, and only window rows of window
+// planes are written.  A sweep over a block padded with its neighbours'
+// halo voxels so flips and counts only the voxels the block owns.
+//
 // What bounds it on this card: the bytes it must move are seg read and out
 // written once (89 MB at 512x512x170, 27 us at 3.35 TB/s) and bins at the
 // boundary voxels only.  Gathering the 27 neighbours byte by byte is bound
@@ -63,6 +70,7 @@ constexpr int kStageBytes = 16384;   // cap on one staged strip
 struct Sweep {
   int Z, Y, X, nw, RB, zc, sY, stage;  // a plane holds < 2^31 bytes
   long long sZ, last;                // last: one past the last valid byte
+  int z0, z1, y0, y1, x0, x1;        // the window
 };
 
 // Dynamic shared memory: two input stages and the out-stage of `stage`
@@ -98,6 +106,13 @@ __device__ void stage_rows(const uint8_t* seg, const Sweep& g, int p, int r0,
           stage[16 * i + j] = *reinterpret_cast<const uint8_t*>(a + j);
     }
   }
+}
+
+// Bits i of word k (x = 32 k + i) with x0 <= x < x1.
+__device__ __forceinline__ uint32_t window_bits(int k, int x0, int x1) {
+  const int lo = max(x0 - 32 * k, 0), hi = min(x1 - 32 * k, 32);
+  if (hi <= lo) return 0u;
+  return (hi == 32 ? ~0u : (1u << hi) - 1u) & ~((1u << lo) - 1u);
 }
 
 // Bit i of the result: byte i of the 32 at `p` is nonzero.  Reads the 9
@@ -164,8 +179,8 @@ region_grow_sweep_kernel(const uint8_t* __restrict__ seg,
     reinterpret_cast<uint4*>(ostage)[i] = make_uint4(0, 0, 0, 0);
   if (t < 8) words[t] = (uint32_t)words_in[t];
 
-  const int y0 = blockIdx.x * RB, ye = min(y0 + RB, g.Y);
-  const int z0 = blockIdx.y * g.zc, z1 = min(z0 + g.zc, g.Z);
+  const int y0 = g.y0 + blockIdx.x * RB, ye = min(y0 + RB, g.y1);
+  const int z0 = g.z0 + blockIdx.y * g.zc, z1 = min(z0 + g.zc, g.z1);
   // the staged rows: the strip and the row beside it on each side
   const int r0 = max(y0 - 1, 0), r1 = min(y0 + RB + 1, g.Y);
   // copies plane c's rows y0..ye-1 from the out-stage to out and zeroes
@@ -228,12 +243,12 @@ region_grow_sweep_kernel(const uint8_t* __restrict__ seg,
       const int r = i / nw, k = i - r * nw;
       const uint32_t dS = rg::dil_rows(rawS + sp * nraw, r, k, nw);
       const uint32_t dU = rg::dil_rows(rawU + sp * nraw, r, k, nw);
-      if (p > z0 && y0 + r < g.Y) {
+      if (p > z0 && y0 + r < ye) {
         const int ci = sc * nraw + (r + 1) * nw + k;
         const uint32_t s = rawS[ci];
         uint32_t b = (dilS[sb * nout + i] | dilS[sc * nout + i] | dS)
                      & (dilU[sb * nout + i] | dilU[sc * nout + i] | dU)
-                     & (s | rawU[ci]);
+                     & (s | rawU[ci]) & window_bits(k, g.x0, g.x1);
         const int row = (y0 + r) * g.sY + 32 * k;
         const uint8_t* bp = bins + c * g.sZ + row;
         uint32_t f = 0;
@@ -264,18 +279,26 @@ region_grow_sweep_kernel(const uint8_t* __restrict__ seg,
 }  // namespace
 
 // seg, bins, out: uint8 with element (z, y, x) at z*sZ + y*sY + x for the
-// region Z x Y x X (a plane of fewer than 2^31 bytes); words: int32[8]
-// decision bits on the device; dh: int32[2][256], zeroed by the caller.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// region Z x Y x X (a plane of fewer than 2^31 bytes); the window
+// [z0, z1) x [y0, y1) x [x0, x1) lies in the region (the whole region
+// for a full sweep); words: int32[8] decision bits on the device; dh:
+// int32[2][256], zeroed by the caller.  Writes the window's rows of its
+// planes, whole, and nothing else of out.  Launches on `stream` and
+// returns cudaGetLastError() (0 = launched, or an empty window).
 extern "C" int region_grow_sweep(const void* seg, const void* bins,
                                  void* out, const void* words, int Z, int Y,
-                                 int X, long long sZ, long long sY, void* dh,
-                                 void* stream) {
+                                 int X, long long sZ, long long sY, int z0,
+                                 int z1, int y0, int y1, int x0, int x1,
+                                 void* dh, void* stream) {
   if (Z <= 0 || Y <= 0 || X <= 0) return 0;
+  if (z0 < 0 || z1 > Z || y0 < 0 || y1 > Y || x0 < 0 || x1 > X)
+    return (int)cudaErrorInvalidValue;
+  if (z1 <= z0 || y1 <= y0 || x1 <= x0) return 0;
   if ((long long)Y * sY > INT_MAX) return (int)cudaErrorInvalidValue;
   const int nw = (X + 31) / 32;
+  const int Yw = y1 - y0, Zw = z1 - z0;
   // about one raw word per thread
-  const int RB = std::max(1, std::min({Y, kThreads / nw - 2,
+  const int RB = std::max(1, std::min({Yw, kThreads / nw - 2,
                                        kStageBytes / (int)sY - 2}));
   // RB + 2 rows from the start of their first 16-byte chunk, and the
   // aligned words that pack32 reads past a row's last word
@@ -293,12 +316,12 @@ extern "C" int region_grow_sweep(const void* seg, const void* bins,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, region_grow_sweep_kernel, kThreads, smem);
-  const int strips = (Y + RB - 1) / RB;
-  const int chunks = std::min(Z, std::max(1, per_sm * sms / strips));
-  const int zc = (Z + chunks - 1) / chunks;
+  const int strips = (Yw + RB - 1) / RB;
+  const int chunks = std::min(Zw, std::max(1, per_sm * sms / strips));
+  const int zc = (Zw + chunks - 1) / chunks;
   const Sweep g{Z, Y, X, nw, RB, zc, (int)sY, stage, sZ,
-                (Z - 1) * sZ + (Y - 1) * sY + X};
-  const dim3 grid(strips, (Z + zc - 1) / zc);
+                (Z - 1) * sZ + (Y - 1) * sY + X, z0, z1, y0, y1, x0, x1};
+  const dim3 grid(strips, (Zw + zc - 1) / zc);
   region_grow_sweep_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(seg), static_cast<const uint8_t*>(bins),
       static_cast<uint8_t*>(out), static_cast<const int32_t*>(words), g,

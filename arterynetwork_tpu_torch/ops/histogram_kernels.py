@@ -35,14 +35,15 @@ def _kernel_lib():
         _P, _P, _P, _LL, _I, _I, _P, _I, _P])
 
 
-def masked_histograms_plain(bins, masks, num_bins=256):
-    """f32[K, num_bins] histograms of the flat ``bins`` under the K rows
-    of the bool ``masks`` (K, N): ``torch.bincount`` of the masked bins,
-    counted exactly, cast to f32 once."""
+def masked_histograms_plain(bins, masks, num_bins=256,
+                            dtype=torch.float32):
+    """[K, num_bins] histograms of the flat ``bins`` under the K rows of
+    the bool ``masks`` (K, N): ``torch.bincount`` of the masked bins,
+    counted exactly, cast to ``dtype`` once."""
     bins = bins.reshape(-1).long()
     return torch.stack([
         torch.bincount(bins[m.reshape(-1)], minlength=num_bins)[:num_bins]
-        for m in masks]).to(torch.float32)
+        for m in masks]).to(dtype)
 
 
 def _check(bins, masks, num_bins):
@@ -65,13 +66,13 @@ def _check(bins, masks, num_bins):
         raise ValueError("bins and masks must be contiguous")
 
 
-def _launch(bins, masks, num_bins):
-    """The kernel's counts as f32 (no launch for an empty volume)."""
+def _launch(bins, masks, num_bins, dtype=torch.float32):
+    """The kernel's counts as ``dtype`` (no launch for an empty volume)."""
     k = masks.shape[0]
     out = torch.zeros((k, num_bins), dtype=torch.int32, device=bins.device)
     n = bins.shape[0]
     if not n:
-        return out.to(torch.float32)
+        return out.to(dtype)
     lib = _kernel_lib()
     with torch.cuda.device(bins.device):
         n_sm = torch.cuda.get_device_properties(
@@ -81,17 +82,18 @@ def _launch(bins, masks, num_bins):
             masks.data_ptr() + n * (k - 1), n, k, int(num_bins),
             out.data_ptr(), n_sm, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, "masked_histograms_u8")
-    return out.to(torch.float32)
+    return out.to(dtype)
 
 
-def masked_histogram1(bins, mask, num_bins=256):
-    """K6b: f32[num_bins] histogram of the flat ``bins`` under one bool
-    ``mask`` (N,)."""
+def masked_histogram1(bins, mask, num_bins=256, dtype=torch.float32):
+    """K6b: [num_bins] histogram of the flat ``bins`` under one bool
+    ``mask`` (N,), as ``dtype`` (f32; int32 keeps the exact counts, which
+    a sum over shards needs)."""
     masks = mask.reshape(1, -1)
     _check(bins, masks, num_bins)
     if bins.device.type == "cpu":
-        return masked_histograms_plain(bins, masks, num_bins)[0]
-    out = _launch(bins, masks, num_bins)[0]
+        return masked_histograms_plain(bins, masks, num_bins, dtype)[0]
+    out = _launch(bins, masks, num_bins, dtype)[0]
     masked_histogram1.launches += bool(bins.shape[0])
     return out
 

@@ -59,11 +59,12 @@ class RegionGrowResult:
     stop_reason: torch.Tensor      # int32: 0=converged, 1=size cap, 2=iter cap
 
 
-def _quantize(data, num_bins):
+def _quantize(data, num_bins, vmin=None, vmax=None):
     """(bin ids int32, bin values) of ``data``, in the JAX package's
-    operation order (round half to even)."""
-    vmin = torch.min(data)
-    vmax = torch.max(data)
+    operation order (round half to even).  ``vmin``/``vmax`` default to
+    the data's own; a shard of a volume passes the volume's."""
+    vmin = torch.min(data) if vmin is None else vmin
+    vmax = torch.max(data) if vmax is None else vmax
     span = torch.clamp(vmax - vmin, min=1e-30)
     last = torch.tensor(num_bins - 1, dtype=data.dtype, device=data.device)
     idx = torch.clamp(torch.round((data - vmin) / span * last),

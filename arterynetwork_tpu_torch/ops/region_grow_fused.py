@@ -17,6 +17,10 @@ into 8 words.
 ``fused_sweep_counts`` is the kernel's wrapper: CUDA tensors launch
 ``csrc/region_grow_sweep.cu`` (or raise), CPU tensors run
 ``fused_sweep_plain``; ``fused_sweep_counts.launches`` counts launches.
+Both take an interior ``window`` of the region: the rule reads the whole
+region, but only window voxels may flip and be counted.  The sharded
+grower (parallel/sharded.py) sweeps each halo-padded shard over the
+voxels it owns so.
 The JAX package's TPU layout (transposes, 8/128 padding, bf16 wire) is
 dropped: seg and bins are uint8 in the natural (Z, Y, X) order.
 ``fused_sweep_banded`` and ``fused_sweep_banded_dma`` keep their JAX
@@ -45,7 +49,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 def _kernel_lib():
     return cuda_build.load("region_grow_sweep", region_grow_sweep=[
-        _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P, _P])
+        _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _P,
+        _P])
 
 
 def pack_sign_words(table):
@@ -69,14 +74,26 @@ def _region(t, valid_yx):
     return t[:, :valid_yx[0], :valid_yx[1]]
 
 
-def fused_sweep_plain(seg, idx, sign_words, valid_yx=None):
+def _window_mask(shape, window, device):
+    """bool ``shape``, True on the window ((z0, z1), (y0, y1), (x0, x1))."""
+    m = torch.zeros(shape, dtype=torch.bool, device=device)
+    m[tuple(slice(lo, hi) for lo, hi in window)] = True
+    return m
+
+
+def fused_sweep_plain(seg, idx, sign_words, valid_yx=None, window=None):
     """Plain PyTorch version of the K2 launch (same signature): dilate26
-    of the valid region + decision bits + xor + bincount deltas.  Returns
-    (seg_new uint8 of ``seg``'s shape, pads zero; int32[2, 256] counts of
-    flips of unsegmented / segmented voxels by bin)."""
+    of the valid region + decision bits + xor + bincount deltas, flips
+    only inside ``window`` (default: the whole region).  Returns (seg_new
+    uint8 of ``seg``'s shape: ``seg != 0`` with the flips applied, pads
+    zero; int32[2, 256] counts of flips of unsegmented / segmented voxels
+    by bin).  Of a windowed sweep only the window's voxels are the
+    kernel's contract; elsewhere this returns ``seg != 0``."""
     s = _region(seg, valid_yx) != 0
     b = _region(idx, valid_yx)
     flips = dilate26(s) & dilate26(~s) & (s ^ _unpack_bits(sign_words, b))
+    if window is not None:
+        flips &= _window_mask(s.shape, window, s.device)
     out = torch.zeros_like(seg)
     _region(out, valid_yx).copy_(s ^ flips)
     bl = b.to(torch.int64)
@@ -86,7 +103,7 @@ def fused_sweep_plain(seg, idx, sign_words, valid_yx=None):
     return out, dh.to(torch.int32)
 
 
-def _check(seg, idx, sign_words, valid_yx):
+def _check(seg, idx, sign_words, valid_yx, window):
     if seg.dim() != 3 or tuple(seg.shape) != tuple(idx.shape):
         raise ValueError(f"seg and idx must be one (Z, Y, X) shape, got "
                          f"{tuple(seg.shape)} and {tuple(idx.shape)}")
@@ -98,6 +115,12 @@ def _check(seg, idx, sign_words, valid_yx):
     if valid_yx is not None and not (0 <= valid_yx[0] <= seg.shape[1]
                                      and 0 <= valid_yx[1] <= seg.shape[2]):
         raise ValueError(f"valid_yx {valid_yx} beyond {tuple(seg.shape)}")
+    if window is not None:
+        extent = (seg.shape[0], *(valid_yx or seg.shape[1:]))
+        if len(window) != 3 or not all(
+                0 <= lo <= hi <= n for (lo, hi), n in zip(window, extent)):
+            raise ValueError(f"window {window} is not ((z0, z1), (y0, y1), "
+                             f"(x0, x1)) inside the region {extent}")
     if not (seg.device == idx.device == sign_words.device):
         raise ValueError("seg, idx and sign_words on different devices")
     if seg.device.type not in ("cpu", "cuda"):
@@ -106,28 +129,39 @@ def _check(seg, idx, sign_words, valid_yx):
         raise ValueError("seg and idx must be contiguous")
 
 
-def fused_sweep_counts(seg, idx, sign_words, valid_yx=None):
+def fused_sweep_counts(seg, idx, sign_words, valid_yx=None, window=None):
     """One region-grow sweep over the valid region (Z, Y0, X0) of a
     (Z, Y, X) uint8 volume -> (seg_new uint8, pads zero; dh int32[2, 256]:
     flips of unsegmented voxels (+) and of segmented voxels (-) by bin).
+    With ``window`` = ((z0, z1), (y0, y1), (x0, x1)) inside the region,
+    only window voxels flip and are counted; the rule still reads the
+    whole region, and the bytes of seg_new outside the window are
+    unspecified (the caller keeps the window).
     CPU tensors take ``fused_sweep_plain``; CUDA tensors launch K2."""
-    _check(seg, idx, sign_words, valid_yx)
+    _check(seg, idx, sign_words, valid_yx, window)
     if seg.device.type == "cpu":
-        return fused_sweep_plain(seg, idx, sign_words, valid_yx)
+        return fused_sweep_plain(seg, idx, sign_words, valid_yx, window)
     lib = _kernel_lib()
     Z, Y, X = seg.shape
     Y0, X0 = valid_yx if valid_yx is not None else (Y, X)
-    padded = (Y0, X0) != (Y, X)
-    out = torch.zeros_like(seg) if padded else torch.empty_like(seg)
+    full = ((0, Z), (0, Y0), (0, X0))
+    if window is None or tuple(map(tuple, window)) == full:
+        window = full
+        padded = (Y0, X0) != (Y, X)
+        out = torch.zeros_like(seg) if padded else torch.empty_like(seg)
+    else:                           # the kernel writes the window's rows
+        out = torch.empty_like(seg)
     dh = torch.zeros((2, NUM_BINS), dtype=torch.int32, device=seg.device)
     words = sign_words.to(torch.int32).contiguous()
+    (z0, z1), (y0, y1), (x0, x1) = window
     with torch.cuda.device(seg.device):
         rc = lib.region_grow_sweep(
             seg.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            words.data_ptr(), Z, int(Y0), int(X0), Y * X, X, dh.data_ptr(),
+            words.data_ptr(), Z, int(Y0), int(X0), Y * X, X, int(z0),
+            int(z1), int(y0), int(y1), int(x0), int(x1), dh.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(rc, "region_grow_sweep")
-    fused_sweep_counts.launches += 1
+    fused_sweep_counts.launches += all(hi > lo for lo, hi in window)
     return out, dh
 
 

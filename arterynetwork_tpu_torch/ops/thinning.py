@@ -148,6 +148,24 @@ def _crop_box(fg):
     return tuple(out)
 
 
+def _subfield_deletions(fg, code, eligible, preserve_endpoints, lut):
+    """The voxels of one subfield deleted at once: ``fg`` voxels with
+    ``eligible`` set (at the level, in the subfield) that are simple by
+    their 26-bit ``code`` (through ``lut``, or label propagation when it
+    is None) and, with ``preserve_endpoints``, not curve endpoints."""
+    # ncnt > 0: any fg neighbor; ncnt > 1: at least two
+    gate = (code & (code - 1)) != 0 if preserve_endpoints else code != 0
+    cand = fg & eligible & gate
+    if lut is not None:
+        return cand & lut[code]
+    idx = torch.nonzero(cand.reshape(-1)).reshape(-1)
+    planes = code_bits(code.reshape(-1)[idx]).T
+    keep = idx[_simple_from_planes(planes)]
+    cand = torch.zeros_like(cand).reshape(-1)
+    cand[keep] = True
+    return cand.reshape(fg.shape)
+
+
 def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
                 device=None, predicate: str = "auto"):
     """Thin a binary volume to its curve skeleton, on ``device`` (by
@@ -181,20 +199,9 @@ def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
         at_level = d2 <= level2
         deleted = torch.zeros((), dtype=torch.bool, device=device)
         for sf in range(8):
-            code = neighborhood_codes(fg)
-            # ncnt > 0: any fg neighbor; ncnt > 1: at least two
-            gate = (code & (code - 1)) != 0 if preserve_endpoints \
-                else code != 0
-            cand = fg & at_level & sub_masks[sf] & gate
-            if lut is not None:
-                cand &= lut[code]
-            else:
-                idx = torch.nonzero(cand.reshape(-1)).reshape(-1)
-                planes = code_bits(code.reshape(-1)[idx]).T
-                keep = idx[_simple_from_planes(planes)]
-                cand = torch.zeros_like(cand).reshape(-1)
-                cand[keep] = True
-                cand = cand.reshape(fg.shape)
+            cand = _subfield_deletions(fg, neighborhood_codes(fg),
+                                       at_level & sub_masks[sf],
+                                       preserve_endpoints, lut)
             fg = fg & ~cand
             deleted |= cand.any()
         return fg, deleted

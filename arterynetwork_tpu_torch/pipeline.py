@@ -38,6 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from .config import PipelineConfig
+from .utils.hostmem import configure_host_allocator
+
+# volume stages churn 100-200 MB numpy temporaries per call; keep them
+# heap-resident so steady-state runs do not re-fault every page
+configure_host_allocator()
 
 
 @dataclasses.dataclass

@@ -23,8 +23,11 @@ Phases, each printing its own lines:
                and three timed runs, 44 kernel launches per run, finite
                pressures and flows, mask recall >= 0.95;
   6. sweep_cases — K2 (through fused_sweep_counts and the padded entries
-               fused_sweep, fused_sweep_banded, fused_sweep_banded_dma)
-               and K5 against their plain versions on hard inputs:
+               fused_sweep, fused_sweep_banded, fused_sweep_banded_dma;
+               with interior windows of one plane, one row, one voxel,
+               touching one face, x cuts, and each halo-padded block of
+               a 2x2 mesh at 512x512x170) and K5 against their plain
+               versions on hard inputs:
                Bernoulli(0.5) states with random decision words, all-
                and none-segmented volumes, ragged shapes, padded calls,
                a view not on a 16-byte boundary; K5 with ragged last
@@ -88,6 +91,20 @@ Phases, each printing its own lines:
                the run, (c) the CLI's `morpho --no-figures` on the store,
                (d) networkx, jax and matplotlib never imported, (e) K1 x
                44 per run.
+     sharded_512 — parallel/pipeline_sharded.mini_pipeline_sharded on
+               the pipeline_512 raw volume over a 2x2 mesh of cuda:0
+               slots, at its defaults (sigmas 1, 2; 60 grow iterations;
+               16 waves; T = 8): one warm-up and three timed runs with
+               per-stage times; gates (a) the vesselness bit-equal to
+               frangi_vesselness of the whole volume, (b) mask and
+               skeleton equal to the single-device composition, (c) a
+               segment, (d) the dp pressure rows equal to the
+               unsharded batch's, (e) K2 4 times per sweep (its interior
+               window) and K6b 8 times, (f) K6b on each padded block
+               (int32, own-box and seed masks) equal to its plain
+               version; halo bytes per iteration, a traced grow's idle
+               share, peak device memory.
+     dryrun_multichip — flagship.dryrun_multichip(4) and (8) on the card.
  11. flow_solvers — bench.py::bench_flow_large's 16k-edge tree (depth
                13, 8,190 unknowns) solved f32 at tol 1e-9 with "auto" and
                the elimination plan (tree) and with "cg", f64 "cg" at the
@@ -648,6 +665,9 @@ def phase_sweep_cases():
     log("sweep_cases", f"K2: {n} calls equal to the plain version "
         f"({len(sweeps)} shapes, 9 padded entry calls, one unaligned view; "
         f"{flips} flips in the unpadded calls)")
+    log("sweep_cases", f"K2 with an interior window: "
+        f"{_window_cases(fused, state, same)} calls equal to the plain "
+        f"version")
 
     tile, m, flips = (8, 16), 0, 0
     for shape, kind, n_words in (((20, 45, 170), "half", 8),
@@ -677,6 +697,78 @@ def phase_sweep_cases():
                 m += 1
     log("sweep_cases", f"K5: {m} calls equal to the plain version (seg, "
         f"dhist and flags; {flips} flips)")
+
+
+def _in_window(out, window):
+    """A windowed sweep's result where it is specified: seg's window
+    voxels, and dh."""
+    return out[0][tuple(slice(lo, hi) for lo, hi in window)], out[1]
+
+
+def _window_cases(fused, state, same):
+    """K2 with an interior window (the sharded grower's call) against its
+    plain version: windows of one plane, one row and one voxel, windows
+    touching one face of the block only, an x cut, a padded region, an
+    unaligned view, and each halo-padded block of a 2x2 mesh at the
+    path's shape, whose interiors reassemble the whole volume's sweep and
+    whose deltas sum to its."""
+    import torch
+    import torch.nn.functional as F
+
+    from arterynetwork_tpu_torch.parallel.halo import (make_volume_mesh,
+                                                       pad_halos,
+                                                       shard_volume)
+
+    n = 0
+    full = ((0, 17), (0, 17), (0, 170))
+    for shape, window in (((17, 17, 170), ((8, 9), (0, 17), (0, 170))),
+                          ((17, 17, 170), ((0, 17), (5, 6), (0, 170))),
+                          ((17, 17, 170), ((16, 17), (16, 17), (169, 170))),
+                          ((17, 17, 170), ((1, 17), (1, 17), (0, 170))),
+                          ((17, 17, 170), ((0, 16), (0, 16), (0, 170))),
+                          ((17, 17, 170), full),
+                          ((17, 33, 513), ((2, 15), (3, 30), (5, 500))),
+                          ((40, 100, 170), ((1, 39), (1, 99), (0, 170))),
+                          ((3, 3, 33), ((1, 2), (1, 2), (1, 32)))):
+        for kind in ("half", "all", "none"):
+            seg, bins, words = state(shape, kind)
+            same(f"K2 window {window} {kind} {shape}", _in_window(
+                fused.fused_sweep_counts(seg, bins, words, window=window),
+                window), _in_window(fused.fused_sweep_plain(
+                    seg, bins, words, window=window), window))
+            n += 1
+    seg, bins, words = state((5, 17, 33))
+    pad = (0, 95, 0, 15)
+    args = (F.pad(seg, pad), F.pad(bins, pad), words, (17, 33))
+    win = ((1, 4), (2, 16), (3, 30))
+    same("K2 window on a padded region",
+         _in_window(fused.fused_sweep_counts(*args, window=win), win),
+         _in_window(fused.fused_sweep_plain(*args, window=win), win))
+    seg, bins, words = state((18, 17, 170))
+    view = (seg[1:], bins[1:], words)
+    win = ((1, 16), (1, 16), (0, 170))
+    same("K2 window on an unaligned view",
+         _in_window(fused.fused_sweep_counts(*view, window=win), win),
+         _in_window(fused.fused_sweep_plain(*view, window=win), win))
+    n += 2
+    seg, bins, words = state(RG_SHAPE)
+    whole = fused.fused_sweep_plain(seg, bins, words)
+    mesh = make_volume_mesh([seg.device] * 4)
+    seg_p = pad_halos(shard_volume(seg, mesh), 1)
+    bins_p = pad_halos(shard_volume(bins, mesh), 1)
+    dh = torch.zeros_like(whole[1])
+    for idx in seg_p.source.indices():
+        args = (seg_p.blocks[idx], bins_p.blocks[idx], words)
+        win = seg_p.window(idx)
+        out = fused.fused_sweep_counts(*args, window=win)
+        same(f"K2 on the padded block {idx} of a 2x2 mesh",
+             _in_window(out, win),
+             _in_window(fused.fused_sweep_plain(*args, window=win), win))
+        seg_p.blocks[idx] = out[0]
+        dh += out[1]
+        n += 1
+    same("K2's 2x2 blocks reassembled", (seg_p.crop().gather(), dh), whole)
+    return n
 
 
 def phase_region_grow_kernels(vol, seed):
@@ -738,6 +830,16 @@ def phase_region_grow_kernels(vol, seed):
     front_a, front_b = seg8.clone(), seg8.clone()
     n_seg, n_bnd = int(masks[0].sum()), int(bnd.sum())
     sweep_bytes = 2 * n + n_bnd + 2 * 256 * 4
+    # a block of sharded_512's grower: 256 x 256 own rows of the state
+    # around the tube with a one-voxel halo on each side, swept over its
+    # window (the kernel reads the block, writes and counts the window)
+    blk = (slice(127, 385), slice(127, 385))
+    seg_b, bins_b = seg8[blk].contiguous(), bins[blk].contiguous()
+    win = ((1, 257), (1, 257), (0, X))
+    n_b = seg_b.numel()
+    n_bnd_win = int(bnd[128:384, 128:384].sum())
+    log("region_grow_kernels", f"windowed K2 block {tuple(seg_b.shape)}, "
+        f"window {win}: {n_bnd_win} boundary voxels in the window")
     # name: (kernel, plain version, bytes it must move, library call)
     cases = {
         "masked_histogram1": (
@@ -753,6 +855,12 @@ def phase_region_grow_kernels(vol, seed):
             lambda: fused.fused_sweep_counts(seg8, bins, words),
             lambda: fused.fused_sweep_plain(seg8, bins, words),
             sweep_bytes, None),
+        "region_grow_sweep window": (
+            lambda: _in_window(fused.fused_sweep_counts(
+                seg_b, bins_b, words, window=win), win),
+            lambda: _in_window(fused.fused_sweep_plain(
+                seg_b, bins_b, words, window=win), win),
+            2 * n_b + n_bnd_win + 2 * 256 * 4, None),
         "region_grow_sweep banded (K3)": (
             lambda: fused.fused_sweep_banded(seg_p, bins_p, words, valid),
             lambda: fused.fused_sweep(seg_p, bins_p, words, valid),
@@ -1672,6 +1780,268 @@ def phase_graph_path(phantom, raw):
     return launches[-1]
 
 
+SHARDED_SIGMAS = (1.0, 2.0)     # mini_pipeline_sharded's defaults
+SHARDED_ITERS = 60
+SHARDED_WAVES = 16
+SHARDED_T = 8
+
+
+def _rel_diff(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def phase_sharded_512(raw):
+    """mini_pipeline_sharded on the pipeline_512 raw volume over a 2x2
+    mesh of cuda:0 slots (the four blocks run one after another on the
+    one card), at its defaults: one warm-up and three timed runs with
+    per-stage times; then the gates: (a) the vesselness bit-equal to
+    frangi_vesselness of the whole volume, (b) mask and skeleton equal to
+    the single-device composition on the card (tests/test_parallel.py's),
+    (c) at least one segment, (d) the dp-split rows of the timestep batch
+    (f32 CG, 30 Newton steps at most) on the pipeline's network finite
+    and equal to the unsharded batch's, both solved with torch's
+    deterministic algorithms (index_add_ otherwise sums in no fixed order
+    on the card: the spread of two plain unsharded runs is printed), (e)
+    K2 launched 4 times per sweep of the grower and K6b 8 times (2 per
+    block), (f) K6b on each padded block at the grower's inputs (int32,
+    own-box and seed masks) equal to its plain version, the blocks' sums
+    equal to the whole volume's histograms; the halo bytes per iteration, one traced grow's device idle
+    share beside the single-device grower's, and peak device memory.
+    Where the ground truth (option 2) is infeasible on the skeleton's
+    network, the pipeline returns no pressures (the JAX package's does
+    the same), and (d) takes the boundary pressures of the
+    terminating-pressure model that run_pipeline falls back to."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.flow import (build_system,
+                                              create_ground_truth)
+    from arterynetwork_tpu_torch.flow.solvers import \
+        solve_pressure_newton_batch
+    from arterynetwork_tpu_torch.ops.region_grow import (_bin_ids,
+                                                         _quantize,
+                                                         region_grow)
+    from arterynetwork_tpu_torch.ops.thinning import skeletonize
+    from arterynetwork_tpu_torch.ops.vesselness import frangi_vesselness
+    from arterynetwork_tpu_torch.parallel import sharded
+    from arterynetwork_tpu_torch.parallel.halo import (make_volume_mesh,
+                                                       pad_halos,
+                                                       shard_volume)
+    from arterynetwork_tpu_torch.parallel.distributed import solve_batch_dp
+    from arterynetwork_tpu_torch.parallel.pipeline_sharded import (
+        flow_network, mini_pipeline_sharded)
+
+    dev = torch.device("cuda", 0)
+    mesh = make_volume_mesh([dev] * 4)
+    kw = {"sigmas": SHARDED_SIGMAS, "max_waves": SHARDED_WAVES,
+          "region_grow_iters": SHARDED_ITERS, "n_timesteps": SHARDED_T}
+    totals, stage_runs, peaks = [], [], []
+    for i in range(4):            # run 0 is the warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = mini_pipeline_sharded(raw, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        stages = ", ".join(f"{k} {v:.4f}" for k, v in
+                           res["timings"].items())
+        log("sharded_512", f"run {i}{' (warm-up)' if i == 0 else ''}: "
+            f"total {total:.4f} s; launches {counts}; stages (s): "
+            f"{stages}; peak device memory {peak:.0f} MiB")
+        if i:
+            totals.append(total)
+            stage_runs.append(dict(res["timings"]))
+            peaks.append(peak)
+    rg = res["region_grow"]
+    sweeps = rg["iterations"] + (rg["stop_reason"] == 0)
+    medians = {k: statistics.median(r[k] for r in stage_runs)
+               for k in stage_runs[0]}
+
+    # the single-device composition on the card, each stage timed once
+    vol = torch.from_numpy(np.ascontiguousarray(raw, np.float32)).to(dev)
+    single = {}
+    t0 = time.perf_counter()
+    v1 = frangi_vesselness(vol, sigmas=SHARDED_SIGMAS)
+    torch.cuda.synchronize()
+    single["vesselness"] = time.perf_counter() - t0
+    vmin, vmax = torch.min(v1), torch.max(v1)
+    seeds = v1 > vmin + 0.5 * (vmax - vmin)
+    t0 = time.perf_counter()
+    grown1 = region_grow(v1, seeds, max_segment_size=10 ** 7,
+                         iter_max=SHARDED_ITERS)
+    single["region_grow"] = time.perf_counter() - t0
+    mask1 = grown1.segmented_map
+    t0 = time.perf_counter()
+    skel1 = skeletonize(mask1, max_waves=SHARDED_WAVES)
+    torch.cuda.synchronize()
+    single["thinning"] = time.perf_counter() - t0
+    gate_a = bool(np.array_equal(res["vesselness"], v1.cpu().numpy()))
+    gate_b = (bool(np.array_equal(res["mask"], mask1.cpu().numpy()))
+              and bool(np.array_equal(res["skeleton"],
+                                      skel1.cpu().numpy()))
+              and rg["iterations"] == int(grown1.iterations)
+              and rg["segmented_count"] == int(grown1.segmented_count))
+    n_seg = len(res["segments"] or [])
+    gate_c = n_seg >= 1
+
+    spread = bit_equal = bp_from = n_nodes = resid = None
+    if gate_c:
+        net = flow_network(res["segments"], res["mask"])
+        gt = create_ground_truth(net, option=2,
+                                 rng=np.random.default_rng(0))
+        if gt.success:
+            bp, bp_from = gt.pressure, "ground truth (option 2)"
+        else:
+            from arterynetwork_tpu_torch.config import PipelineConfig
+            from arterynetwork_tpu_torch.pipeline import _solve_network
+
+            bp = _solve_network(net, {}, PipelineConfig().flow,
+                                device=dev)[0].node_pressure
+            bp_from = "terminating-pressure model"
+        n_nodes = net.num_nodes
+        system = build_system(net, boundary_pressure=bp,
+                              dtype=torch.float32, device=dev)
+        scales = torch.linspace(1.0, 0.9, SHARDED_T, dtype=torch.float64)
+        fixed = torch.where(system.node_fixed.cpu(), torch.as_tensor(
+            bp, dtype=torch.float32)[None] * scales[:, None], 0.0).to(dev)
+        batch = dataclasses.replace(
+            system, node_fixed_pressure=fixed.to(torch.float32))
+
+        def unsharded():
+            return solve_pressure_newton_batch(batch, max_iter=30,
+                                               linear_solver="cg")
+
+        spread = _rel_diff(unsharded().pressure.cpu(),
+                           unsharded().pressure.cpu())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            dp_sol = solve_batch_dp(system, fixed, slots=mesh, max_iter=30,
+                                    linear_solver="cg")
+            one = unsharded()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rows = dp_sol.pressure.cpu().numpy()
+        bit_equal = bool(np.array_equal(rows, one.pressure.cpu().numpy()))
+        resid = float(dp_sol.residual_norm.max())
+    gate_d = bool(bit_equal) and bool(np.isfinite(rows).all())
+    gate_e = (counts["region_grow_sweep"] == 4 * sweeps
+              and counts["masked_histogram1"] == 8)
+
+    # halo bytes of one exchange, and one traced grow each way
+    v_sh = sharded.frangi_vesselness(shard_volume(vol, mesh),
+                                     sigmas=SHARDED_SIGMAS)
+    seeds_sh = shard_volume(seeds, mesh)
+    pad = pad_halos(seeds_sh.map(lambda b: b.to(torch.uint8)), 1)
+    halo_bytes = sum(pad.blocks[i].numel() - seeds_sh.blocks[i].numel()
+                     for i in seeds_sh.indices())
+    # (f) K6b at the grower's inputs: each padded block's int32
+    # histograms under its own-box mask and its seed (inner) mask, both
+    # false on the halo, exact against the plain version, and the blocks'
+    # sums equal to the whole volume's histograms
+    hk = _ops("histogram_kernels")
+    bins_pad, _ = sharded.quantized_bins(v_sh)
+    sums = torch.zeros((2, 256), dtype=torch.int64, device=dev)
+    k6b_err, k6b_calls = 0, 0
+    for flat, own, inner in sharded.histogram_inputs(bins_pad,
+                                                     seeds_sh).values():
+        for j, m in enumerate((own, inner)):
+            h = hk.masked_histogram1(flat, m, 256, torch.int32)
+            ref = hk.masked_histograms_plain(flat, m[None], 256,
+                                             torch.int32)[0]
+            k6b_err = max(k6b_err, int((h - ref).abs().max()))
+            sums[j] += h
+            k6b_calls += 1
+    bins1 = _bin_ids(_quantize(v1, 256)[0], 256).reshape(-1).long()
+    whole = torch.stack([
+        torch.bincount(bins1, minlength=256),
+        torch.bincount(bins1[seeds.reshape(-1)], minlength=256)])
+    gate_f = k6b_err == 0 and bool(torch.equal(sums, whole))
+    log("sharded_512", f"K6b on the {k6b_calls // 2} padded blocks "
+        f"({', '.join(str(tuple(b.shape)) for b in bins_pad.blocks.reshape(-1))}"
+        f"), own and inner masks, int32: max|d| {k6b_err} from the plain "
+        f"version; block sums equal to the whole volume's "
+        f"{bool(torch.equal(sums, whole))} ({int(whole[0].sum())} voxels, "
+        f"{int(whole[1].sum())} seeds)")
+
+    wall, busy, idle = device_idle(lambda: sharded.region_grow(
+        v_sh, seeds_sh, max_segment_size=10 ** 7, iter_max=SHARDED_ITERS))
+    wall1, busy1, idle1 = device_idle(lambda: region_grow(
+        v1, seeds, max_segment_size=10 ** 7, iter_max=SHARDED_ITERS))
+    out = {"phase": "sharded_512", "mesh": "2x2 of cuda:0",
+           "median_s": statistics.median(totals), "runs_s": totals,
+           "stage_medians_s": medians, "single_device_stages_s": single,
+           "grow": rg, "sweeps": sweeps, "launches": counts,
+           "segments": n_seg, "mask_voxels": int(res["mask"].sum()),
+           "skeleton_voxels": int(res["skeleton"].sum()),
+           "halo_bytes_per_iteration": halo_bytes,
+           "host_reads_per_iteration": 1,
+           "traced_grow_s": wall, "traced_grow_busy_s": busy,
+           "traced_grow_idle": idle, "single_grow_traced_s": wall1,
+           "single_grow_idle": idle1, "peak_mib": max(peaks),
+           "pressure_bit_equal": bit_equal,
+           "unsharded_two_runs_rel_spread": spread,
+           "max_residual_m3s": resid,
+           "pipeline_pressures": res["pressure_batch"] is not None,
+           "boundary_pressures_from": bp_from, "flow_nodes": n_nodes,
+           "gates": {"a_vesselness": gate_a, "b_mask_skeleton": gate_b,
+                     "c_segments": gate_c, "d_pressures": gate_d,
+                     "e_launches": gate_e, "f_k6b_blocks": gate_f}}
+    log("sharded_512", f"median total {out['median_s']:.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in totals)}); stage medians "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in medians.items())}; the "
+        f"single-device composition "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in single.items())}; "
+        f"grower {rg} ({sweeps} sweeps, K2 {counts['region_grow_sweep']}"
+        f", K6b {counts['masked_histogram1']}, K1 "
+        f"{counts['frangi_response']}); {n_seg} segments, mask "
+        f"{out['mask_voxels']} voxels, skeleton {out['skeleton_voxels']}; "
+        f"halo {halo_bytes} bytes per iteration, 1 host read per "
+        f"iteration; traced grow {wall:.4f} s, device busy {busy:.4f} s "
+        f"({idle:.1%} idle), single-device grower {wall1:.4f} s "
+        f"({idle1:.1%} idle); peak device memory {max(peaks):.0f} MiB; "
+        f"the pipeline's pressures {out['pipeline_pressures']}; dp rows "
+        f"on its {n_nodes}-node network ({bp_from}) bit-equal to the "
+        f"unsharded batch (deterministic algorithms) {bit_equal}, max "
+        f"residual {resid} m^3/s; two plain unsharded runs differ by "
+        f"{spread} (relative); gates {out['gates']}")
+    print(json.dumps(out), flush=True)
+    if not all(out["gates"].values()):
+        raise SystemExit(f"sharded_512: a gate failed: {out['gates']}")
+    return counts
+
+
+def phase_dryrun_multichip():
+    """flagship.dryrun_multichip(4) and (8) on the card: the slots repeat
+    cuda:0 (one card), the sharded grower, the dp split and the sharded
+    mini pipeline on tiny shapes."""
+    from arterynetwork_tpu_torch import flagship
+
+    counts = None
+    for n in (4, 8):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = flagship.dryrun_multichip(n)
+        counts = read_counts()
+        log("dryrun_multichip", f"n={n}: {time.perf_counter() - t0:.2f} s; "
+            f"region count {out['segmented_count']}; dp pressures "
+            f"{tuple(out['pressures'].shape)}; pipeline mask "
+            f"{int(out['pipeline']['mask'].sum())} voxels; "
+            f"{out['distinct_devices']} distinct card(s); launches "
+            f"{counts}")
+        if not (out["segmented_count"] > 0
+                and counts["region_grow_sweep"] > 0):
+            raise SystemExit(f"dryrun_multichip({n}): no growth or no K2")
+    return counts
+
+
 FLOW_DEPTH = 13      # bench.py::bench_flow_large, "16k"
 STUDY_DEPTH = 10     # BraVa single-subject scale (~2k segments)
 LONG_T = 8           # longitudinal timesteps
@@ -2060,6 +2430,11 @@ def main():
     seeded = phase_seeded_pipeline(phantom, raw)
     voxel = phase_voxel_options(phantom, raw)
     graph_k1 = phase_graph_path(phantom, raw)
+    t1 = time.perf_counter()
+    sharded_counts = phase_sharded_512(raw)
+    dryrun_counts = phase_dryrun_multichip()
+    log("timing", f"sharded_512 and dryrun_multichip: "
+        f"{time.perf_counter() - t1:.1f} s")
     t_flow = time.perf_counter()
     for phase in (phase_flow_solvers, phase_longitudinal, phase_studies):
         t1 = time.perf_counter()
@@ -2075,7 +2450,9 @@ def main():
              "voxel_options_512": {"frangi_response": voxel["pipeline"]},
              "graph_path_512": {"frangi_response": graph_k1},
              "frangi_vesselness_chunked": {
-                 "frangi_response": voxel["chunked"]}}
+                 "frangi_response": voxel["chunked"]},
+             "sharded_512": sharded_counts,
+             "dryrun_multichip(8)": dryrun_counts}
     log("launches", json.dumps({p: {k: v for k, v in c.items() if v}
                                 for p, c in paths.items()}))
 
@@ -2106,7 +2483,13 @@ def main():
              vmap["sign_lookup"] + vmap["table_lookup"])):
         kernels.append({"name": name, "route": "cuda",
                         "source": csrc + source, "replaces": replaces,
-                        "launches": n, **rec[name]})
+                        "launches": n,
+                        "launches_by_path": {p: c[name] for p, c in
+                                             paths.items() if c.get(name)},
+                        **rec[name]})
+    for k in kernels:               # K2's interior-window entry
+        if k["name"] == "region_grow_sweep":
+            k["window"] = rec["region_grow_sweep window"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -486,8 +486,11 @@ def test_flagship_entry_matches_graft_entry():
     assert p_t.dtype == torch.float32
     assert _rel(p_t.numpy(), p_j) <= 1e-5
     assert _rel(q_t.numpy(), q_j) <= 1e-5
-    with pytest.raises(NotImplementedError):
-        flagship.dryrun_multichip(4)
+    if not torch.cuda.is_available():
+        # an entry point runs on the card unless asked for the CPU
+        # (tests/test_torch_parallel.py runs it on CPU slots)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            flagship.dryrun_multichip(4)
 
 
 # --------------------------------------------------------------- imports
@@ -534,6 +537,15 @@ def test_port_imports_no_jax():
     assert {"edt.py", "cc.py", "thinning.py", "simple_point.py",
             "fidelity.py", "voxel_graph.py", "traversal.py", "editing.py",
             "curvature.py", "__main__.py"} <= {p.name for p in files}
+    # the parallel slice and the utilities
+    new = {"parallel/halo.py", "parallel/sharded.py",
+           "parallel/distributed.py", "parallel/pipeline_sharded.py",
+           "parallel/dcn_smoke.py", "parallel/__init__.py",
+           "utils/hostmem.py", "utils/profiling.py", "utils/debug.py",
+           "utils/reference_protocol.py", "utils/reference_region_grow.py",
+           "io/stitch.py"}
+    assert new <= {p.relative_to(REPO / "arterynetwork_tpu_torch")
+                   .as_posix() for p in files[:-1]}
     bad, optional = [], []
     for path in files:
         for line, name, fn in _imports(ast.parse(path.read_text(),

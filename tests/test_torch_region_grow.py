@@ -30,8 +30,6 @@ from arterynetwork_tpu.ops.region_grow import \
     region_grow_value_map as j_value_map
 from arterynetwork_tpu.ops.region_grow_frontier import \
     region_grow_frontier as j_frontier
-from arterynetwork_tpu.utils.reference_region_grow import \
-    reference_region_grow
 from arterynetwork_tpu_torch import convert
 from arterynetwork_tpu_torch.ops import region_grow_fused as tfused
 from arterynetwork_tpu_torch.ops import stencil as tstencil
@@ -43,6 +41,8 @@ from arterynetwork_tpu_torch.ops.region_grow import (
 from arterynetwork_tpu_torch.ops.region_grow_frontier import \
     region_grow_frontier
 from arterynetwork_tpu_torch.utils.phantoms import tube_phantom
+from arterynetwork_tpu_torch.utils.reference_region_grow import \
+    reference_region_grow
 
 torch.set_num_threads(1)
 
