@@ -1,10 +1,10 @@
-# Port of arterynetwork_tpu/__main__.py; every command takes --device (default cuda), and the figure paths raise until viz is ported.
+# Port of arterynetwork_tpu/__main__.py; every command takes --device (default cuda).
 """Command-line interface.
 
     python -m arterynetwork_tpu_torch pipeline INPUT.nii.gz --out DIR [options]
     python -m arterynetwork_tpu_torch vesselness INPUT.nii.gz OUTPUT.nii.gz
     python -m arterynetwork_tpu_torch study NAME --out DIR [options]
-    python -m arterynetwork_tpu_torch morpho DIR --no-figures
+    python -m arterynetwork_tpu_torch morpho DIR [--no-figures]
     python -m arterynetwork_tpu_torch info
 
 The reference's pipeline is a set of scripts edited by hand per run
@@ -12,20 +12,13 @@ The reference's pipeline is a set of scripts edited by hand per run
 command with artifacts written in the reference's file layout.  The
 tensors live on ``--device`` (default ``cuda``; ``cpu`` for a machine
 without a card).  The figures (``study gbm5``/``gbm5b``, ``morpho``
-without ``--no-figures``) wait for the port of the JAX package's viz and
-raise ``NotImplementedError`` before any work.
+without ``--no-figures``) need matplotlib.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-
-
-def _no_figures(what):
-    raise NotImplementedError(
-        f"{what} draws figures, and the figures (the JAX package's viz) "
-        "are not ported yet")
 
 
 def _cmd_pipeline(args):
@@ -89,14 +82,13 @@ def _cmd_study(args):
     drivers) on a synthetic partitioned tree or a legacy network dir."""
     import numpy as np
 
-    from .flow import (flow_split_study, gbm_test4, same_flow_study,
+    from .flow import (create_ground_truth, flow_split_study, gbm_test4,
+                       same_flow_study, save_gbm_test5_results,
                        tp_fit_solve_study, two_timepoint_comparison)
     from .flow.boundary import bfs_partition
     from .graphs import generate_tree, set_network_properties
     from .io.artifacts import ArtifactStore
 
-    if args.name in ("gbm5", "gbm5b"):
-        _no_figures(f"study {args.name}")
     rng = np.random.default_rng(args.seed)
     if args.network_dir:
         from .flow.network_setup import convert_network, load_network
@@ -136,6 +128,30 @@ def _cmd_study(args):
         out = gbm_test4(net, partitions=partitions,
                         partition_to_perturb=(next(iter(partitions)),),
                         store=store, device=args.device)
+    elif args.name == "gbm5":
+        import torch
+
+        from .flow.longitudinal import run_longitudinal
+        from .viz import show_result_gbm_test5
+
+        gt = create_ground_truth(net, option=2, rng=rng)
+        batch, sol = run_longitudinal(
+            net, gt.pressure, radius_end, num_timesteps=args.timesteps,
+            interpolation_option=args.interpolation,
+            partitions=partitions, dtype=torch.float64, device=args.device)
+        save_gbm_test5_results(store, net, batch, sol)
+        out = show_result_gbm_test5(store, net,
+                                    num_timesteps=args.timesteps,
+                                    partitions=partitions,
+                                    out_dir=args.out)
+    elif args.name == "gbm5b":
+        import os
+
+        from .flow import gbm_test5b
+        from .viz import show_volume_per_partition
+        out = gbm_test5b(net, radius_end, excluded_edges=(), **common)
+        show_volume_per_partition(
+            out, path=os.path.join(args.out, "gbm5b_volumes.png"))
     elif args.name == "distribute":
         from .flow import distribute_flow_study
         out = distribute_flow_study(net, device=args.device)
@@ -249,17 +265,16 @@ def _build_morpho_bundle(store, partitions_json, spacing):
 def _cmd_morpho(args):
     """The reference's morphology analysis driver in one command
     (graphRelated.py __main__, :1745-1752): generateInfoDict ->
-    calculateCurvature -> statisticsPerPartition(2).  Its figures
-    (createPlots, graphPlotPerPartition(2)) are not ported: without
-    ``--no-figures`` the command raises before any work."""
+    calculateCurvature -> statisticsPerPartition(2) -> createPlots ->
+    graphPlotPerPartition(2)."""
     import os
 
     from .io.artifacts import ArtifactStore, load_basic_files
     from .morpho.curvature import calculate_curvature
-    from .viz import statistics_per_partition, statistics_per_partition2
+    from .viz import (fig1, fig2, fig3, fig4, fig5, fig6, fig11, fig11b,
+                      fig12, fig13, fig18, graph_plot_per_partition,
+                      statistics_per_partition, statistics_per_partition2)
 
-    if not args.no_figures:
-        _no_figures("morpho without --no-figures")
     store = ArtifactStore(args.dir)
     out_dir = args.out or args.dir
     os.makedirs(out_dir, exist_ok=True)
@@ -271,6 +286,7 @@ def _cmd_morpho(args):
     bundle = load_basic_files(store)
     G, segments = bundle["G"], bundle["segmentList"]
     seg_info = bundle["segmentInfoDict"]
+    node_info = bundle["nodeInfoDict"]
     partition_info = bundle["partitionInfo"]
 
     parts = _normalized_partitions(bundle["chosenVoxels"], partition_info)
@@ -284,9 +300,50 @@ def _cmd_morpho(args):
                                      spacing=args.spacing)
     stats2 = statistics_per_partition2(G, segments, parts,
                                        spacing=args.spacing)
+
+    spacing_mm = args.spacing_mm  # defaulted to spacing*1000 when unset
+    figures = {}
+    if not args.no_figures:
+        from .viz._mpl import pyplot
+
+        plt = pyplot()
+        renders = {"fig1": lambda p: fig1(seg_info, node_info,
+                                          spacing_mm=spacing_mm, path=p),
+                   "fig2": lambda p: fig2(seg_info, node_info,
+                                          spacing_mm=spacing_mm, path=p),
+                   "fig3": lambda p: fig3(seg_info, node_info, path=p),
+                   "fig4": lambda p: fig4(seg_info, node_info, path=p),
+                   "fig5": lambda p: fig5(seg_info, node_info, path=p),
+                   "fig6": lambda p: fig6(seg_info, node_info, path=p),
+                   "fig11": lambda p: fig11(seg_info, node_info,
+                                            spacing_mm=spacing_mm, path=p),
+                   "fig11b": lambda p: fig11b(seg_info, node_info,
+                                              spacing_mm=spacing_mm,
+                                              path=p),
+                   "fig12": lambda p: fig12(seg_info, node_info, path=p),
+                   "fig13": lambda p: fig13(seg_info, node_info, path=p),
+                   "fig18": lambda p: fig18(seg_info, node_info,
+                                            spacing_mm=spacing_mm,
+                                            path=p),
+                   "graphPerPartition": lambda p: graph_plot_per_partition(
+                       G, segments, seg_info, node_info, partition_info,
+                       spacing_mm=spacing_mm, path=p),
+                   "graphPerPartition2": lambda p: graph_plot_per_partition(
+                       G, segments, seg_info, node_info, partition_info,
+                       spacing_mm=spacing_mm, shared_colorbar=True,
+                       path=p)}
+        for name, render in renders.items():
+            p = os.path.join(out_dir, name + ".png")
+            try:
+                render(p)
+                figures[name] = p
+            except Exception as exc:  # one bad panel shouldn't kill the run
+                figures[name] = "FAILED: {}".format(exc)
+            plt.close("all")
+
     print(json.dumps({"statisticsPerPartition": stats,
                       "statisticsPerPartition2": stats2,
-                      "figures": {}}, indent=2, default=str))
+                      "figures": figures}, indent=2, default=str))
 
 
 def _cmd_info(args):
@@ -396,8 +453,7 @@ def main(argv=None):
     pm.add_argument("--rebuild", action="store_true",
                     help="rebuild info dicts/partition even if present")
     pm.add_argument("--no-figures", action="store_true",
-                    help="statistics only (required: the figures are "
-                         "not ported)")
+                    help="statistics only, no figures")
     device_flag(pm)
     pm.set_defaults(fn=_cmd_morpho)
 

@@ -26,6 +26,7 @@ from ..constants import (
     PRESSURE_ERROR_FACTOR,
 )
 from .physics import dp_from_flow, flow_from_velocity
+from .segment_sum import cached, plan_segment_sum, segment_sum
 from .system import FlowSystem
 
 
@@ -43,10 +44,19 @@ def _full_pressure_np(h, p_unknown):
 
 
 def _node_net_flow(flow, system: FlowSystem):
-    """Net inflow minus outflow per node (flow is positive head->tail)."""
-    N = system.num_nodes
-    inflow = flow.new_zeros(N).index_add_(0, system.tail, flow)
-    outflow = flow.new_zeros(N).index_add_(0, system.head, flow)
+    """Net inflow minus outflow per node (flow is positive head->tail),
+    each summed in edge order (flow/segment_sum.py)."""
+    N, E = system.num_nodes, system.num_edges
+
+    def build():
+        return plan_segment_sum(
+            np.concatenate([system.tail.cpu().numpy(),
+                            system.head.cpu().numpy() + N]),
+            np.tile(np.arange(E), 2), 2 * N, E, device=system.device)
+
+    plan = cached(system.plans, ("in_out", str(system.device)),
+                  (system.head, system.tail), build)
+    inflow, outflow = segment_sum(plan, flow).split(N, dim=-1)
     return inflow - outflow
 
 

@@ -15,10 +15,12 @@ which is a monotone nonlinear resistive network: the Jacobian is a weighted
 graph Laplacian, so damped Newton converges globally and the solution is
 unique.
 
-Linear-solver backends: ``dense`` (scatter-assembled Laplacian +
+Linear-solver backends: ``dense`` (the assembled Laplacian +
 ``torch.linalg.solve``), ``tree`` (exact tree elimination,
 flow/tree_solver.py) and ``cg`` (matrix-free conjugate gradient on the
-diagonally scaled Laplacian, ``index_add_`` SpMV).
+diagonally scaled Laplacian, gather SpMV).  Every sum over a node's
+edges runs in a fixed order (flow/segment_sum.py), so a solve gives the
+same bits on every run on the card too.
 
 One Newton implementation serves one system and T systems on one graph
 (``solve_pressure_newton_batch``: the longitudinal timesteps, the JAX
@@ -36,7 +38,7 @@ float meets an f32 tensor as f32), as the JAX reference's weak typing
 does, so an f32 solve takes the same decisions.
 
 The edge axis is padded inside the solve to a multiple of 64 with
-inert edges (zero admittance, scattered to the dropped slot M), so that
+inert edges (zero admittance, left out of the node sums), so that
 on the CPU every edge's ``pow`` runs in torch's vectorized loop whatever
 the batch size: a row of a batch then equals its unbatched solve bit for
 bit (with one thread; the scalar tail loop rounds ``pow`` differently).
@@ -50,6 +52,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .physics import edge_admittance, velocity_from_flow
+from .segment_sum import edge_plan, segment_sum
 from .system import FlowSystem
 
 _DP_EPS = 1e-9  # Pa; regularizes dQ/d(dP) at dP = 0
@@ -114,17 +117,13 @@ def _dense_laplacian_solve(system: FlowSystem, w, rhs):
     if w.dim() == 1:
         return _dense_laplacian_solve(system, w[None], rhs[None])[0]
     M, E, T = system.num_unknown_pressures, system.num_edges, w.shape[0]
-    slot = system.node_unknown_index
-    hu = slot[system.head]
-    tu = slot[system.tail]
     w = w[:, :E]
-    # L as rows of (M+1)^2 entries, scatter-added in the reference's order
-    L = w.new_zeros(T, (M + 1) * (M + 1))
-    L.index_add_(1, hu * (M + 1) + hu, w).index_add_(1, tu * (M + 1) + tu, w)
-    L.index_add_(1, hu * (M + 1) + tu, -w).index_add_(1, tu * (M + 1) + hu,
-                                                      -w)
+    # L's nonzeros summed in the reference's order, then placed
+    plan = edge_plan(system, "laplacian")
+    L = w.new_zeros(T, M * M).index_copy_(1, plan.slots,
+                                          segment_sum(plan, w))
     eye = torch.eye(M, dtype=w.dtype, device=w.device)
-    A = (L.view(T, M + 1, M + 1)[:, :M, :M]
+    A = (L.view(T, M, M)
          + eye * (1e-12 * w.amax(dim=1))[:, None, None])
     return torch.linalg.solve_ex(A, rhs)[0]     # no host sync on an error
 
@@ -152,6 +151,7 @@ def _cg_laplacian_solve(system: FlowSystem, w, rhs, tol=None, maxiter=None,
     tu = slot[system.tail]
     w = w[:, :E]
     dtype = w.dtype
+    div = edge_plan(system, "div")
 
     if tol is None:
         # inexact Newton: loose inner solves converge better in f32
@@ -159,8 +159,8 @@ def _cg_laplacian_solve(system: FlowSystem, w, rhs, tol=None, maxiter=None,
     if maxiter is None:
         maxiter = min(8 * M + 64, 192 if dtype == torch.float32 else 2048)
 
-    diag = w.new_zeros(T, M + 1).index_add_(1, hu, w).index_add_(1, tu, w)
-    dinv_sqrt = torch.rsqrt(torch.clamp(diag[:, :M], min=1e-38))
+    diag = segment_sum(edge_plan(system, "diag"), w)
+    dinv_sqrt = torch.rsqrt(torch.clamp(diag, min=1e-38))
     zero = w.new_zeros(T, 1)
     ds_pad = torch.cat([dinv_sqrt, zero], dim=1)
     ridge = 1e-7 if dtype == torch.float32 else 1e-13
@@ -169,9 +169,7 @@ def _cg_laplacian_solve(system: FlowSystem, w, rhs, tol=None, maxiter=None,
         # x = D^-1/2 y; compute D^-1/2 L x
         xp = ds_pad * torch.cat([y, zero], dim=1)
         dx = xp.index_select(1, hu) - xp.index_select(1, tu)
-        out = w.new_zeros(T, M + 1)
-        out.index_add_(1, hu, w * dx).index_add_(1, tu, -w * dx)
-        return ds_pad[:, :M] * out[:, :M] + ridge * y
+        return dinv_sqrt * segment_sum(div, w * dx) + ridge * y
 
     b = dinv_sqrt * rhs
     x = torch.zeros_like(b)
@@ -285,9 +283,10 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
     Ep = -(-(E + 1) // _EDGE_ALIGN) * _EDGE_ALIGN
     fixed_mask = system.node_fixed
     slot = system.node_unknown_index
+    net_plan = edge_plan(system, "net")   # inflow - outflow per unknown
 
     # edge fields as [T, Ep]; pad edges join node 0 to itself with zero
-    # admittance and scatter into the dropped slot M
+    # admittance, and the node sums read the first E edges only
     def edges(x, value):
         x = x.expand(T, E) if x.dim() == 1 else x
         return torch.cat([x, x.new_full((T, Ep - E), value)], dim=1)
@@ -296,8 +295,6 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
         return torch.cat([ix, ix.new_full((Ep - E,), value)])
 
     head, tail = index(system.head, 0), index(system.tail, 0)
-    hslot = index(slot[system.head], M)
-    tslot = index(slot[system.tail], M)
     radius = edges(system.radius_m, 1.0)
     k = edges(system.k, 1.0)
     adm = edge_admittance(radius, edges(system.length_m, 1.0),
@@ -371,9 +368,7 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
         pf = full(p, fixed)
         dp = pf.index_select(-1, head) - pf.index_select(-1, tail)
         q, w = _signed_flow_and_weight(dp, adm, k)
-        net = q.new_zeros(q.shape[:-1] + (M + 1,))
-        net.index_add_(-1, tslot, q).index_add_(-1, hslot, -q)  # in - out
-        return net[..., :M], q, w
+        return segment_sum(net_plan, q), q, w
 
     # the line search's candidate steps, alpha = 2^-j, j = 0..20 (the last
     # is where the sequential search ends when nothing improves)
@@ -461,11 +456,8 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
             w = adm ** inv_k * mag ** (inv_k - 1.0)
             q_hi = w * s
             q_lo = (w * inv_k) * e   # first order: dq/d(dp) = w/k
-            netf = q_hi.new_zeros(T, M + 1)
-            netf.index_add_(1, tslot, q_hi).index_add_(1, hslot, -q_hi)
-            netc = q_lo.new_zeros(T, M + 1)
-            netc.index_add_(1, tslot, q_lo).index_add_(1, hslot, -q_lo)
-            return netf[:, :M] + netc[:, :M], w
+            return (segment_sum(net_plan, q_hi)
+                    + segment_sum(net_plan, q_lo)), w
 
         for _ in range(refine_steps):
             r, w = ds_residual(p_unknown, p_lo)

@@ -63,6 +63,11 @@ class FlowSystem:
     num_unknown_pressures: int
     num_nodes: int
 
+    # fixed-order sum plans built from the index fields
+    # (flow/segment_sum.edge_plan); ``dataclasses.replace`` shares them
+    plans: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
+
     @property
     def num_edges(self) -> int:
         return self.head.shape[0]

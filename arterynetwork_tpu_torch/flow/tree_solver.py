@@ -12,6 +12,16 @@ The elimination structure depends only on the graph, so it is planned
 once on the host (`plan_elimination`) and reused for every Newton
 iteration with different weights.  The rounds run as a Python loop of
 gathers and ``index_add_`` on the system's device.
+
+Two leaves of one round may share a parent, and ``index_add_`` with a
+repeated index adds in no fixed order on a card.  So each round's
+entries are reordered (``EliminationPlan.rounds``): the first leaf of
+every parent, then the second, and so on, and each group goes in with
+its own ``index_add_``, whose indices are distinct.  A parent then takes
+its leaves' terms in the order of the round, as the CPU's ``index_add_``
+of the whole round adds them, and the result is the same bits on every
+device and run.  The other sums (the diagonal, the loop core's
+Laplacian) use flow/segment_sum.py.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .segment_sum import cached, edge_plan, plan_segment_sum, segment_sum
 from .system import FlowSystem
 
 
@@ -41,6 +53,38 @@ class EliminationPlan:
     core_slot: torch.Tensor    # i64[M+1] position of each unknown in core, C if none
     num_rounds: int
     core_size: int
+    # per round: (elim, parents, edge_idx, valid) in the order leaf rank
+    # by parent, then per rank its range [a, z) and parents[a:z] (< M)
+    rounds: tuple = dataclasses.field(init=False, compare=False,
+                                      repr=False)
+    plans: dict = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        M = self.core_slot.shape[0] - 1
+        par = self.parents.cpu().numpy()
+        valid = self.valid.cpu().numpy()
+        rounds = []
+        for r in range(self.num_rounds):
+            live = valid[r] & (par[r] < M)
+            rank = np.zeros(par.shape[1], np.int64)
+            seen = {}
+            for i in np.nonzero(live)[0]:
+                rank[i] = seen.get(par[r, i], 0)
+                seen[par[r, i]] = rank[i] + 1
+            # live entries by rank, then the rest (isolated leaves add
+            # only zeros to the dropped slot M, padding likewise)
+            key = np.where(live, rank, par.shape[1])
+            order = torch.as_tensor(np.argsort(key, kind="stable"),
+                                    device=self.parents.device)
+            counts = np.bincount(rank[live], minlength=1)
+            ends = np.cumsum(counts)
+            fields = tuple(f[r].index_select(0, order) for f in (
+                self.elim_nodes, self.parents, self.edge_idx, self.valid))
+            parts = tuple((int(a), int(z), fields[1][a:z].contiguous())
+                          for a, z in zip(ends - counts, ends) if z > a)
+            rounds.append(fields + (parts,))
+        object.__setattr__(self, "rounds", tuple(rounds))
+        object.__setattr__(self, "plans", {})
 
 
 def plan_elimination(system: FlowSystem) -> Optional[EliminationPlan]:
@@ -129,60 +173,77 @@ def solve_laplacian_tree(system: FlowSystem, plan: EliminationPlan,
     E = system.num_edges
     T = w.shape[0]
     dtype = w.dtype
-    slot = system.node_unknown_index
-    hu = slot[system.head]
-    tu = slot[system.tail]
     w = w[:, :E]
 
-    # initial diagonal: all incident edge weights (fixed neighbors too)
-    d = w.new_zeros(T, M + 1).index_add_(1, hu, w).index_add_(1, tu, w)
-    d[:, M] = 1.0                                            # sentinel
-    b = torch.cat([rhs.to(dtype), w.new_zeros(T, 1)], dim=1)
-    w_pad = torch.cat([w, w.new_zeros(T, 1)], dim=1)
+    # initial diagonal: all incident edge weights (fixed neighbors too),
+    # and the sentinel 1 at slot M; pivots and right-hand sides go
+    # through the rounds together as the rows of db = [d; b] ([2T, M+1]:
+    # one gather and one index_add_ serve both)
+    d = F.pad(segment_sum(edge_plan(system, "diag"), w), (0, 1), value=1.0)
+    db = torch.cat([d, F.pad(rhs.to(dtype), (0, 1))])
+    w_pad = F.pad(w, (0, 1))
 
     # ---- forward elimination ----
     # every gather of a round reads the values from before the round's
     # scatter-adds (two leaves of one round may be each other's parent);
     # index_select costs the host half of what x[:, idx] does
-    for r in range(plan.num_rounds):
-        ev, pv = plan.elim_nodes[r], plan.parents[r]
-        val = plan.valid[r]
-        wv = w_pad.index_select(1, plan.edge_idx[r])
-        dv = torch.where(val, d.index_select(1, ev), 1.0)
+    for ev, pv, eidx, val, parts in plan.rounds:
+        wv = w_pad.index_select(1, eidx)
+        dbv = db.index_select(1, ev)
+        dv = torch.where(val, dbv[:T], 1.0)
         factor = torch.where(val, wv / dv, 0.0)
-        bv = b.index_select(1, ev)
-        d.index_add_(1, pv, -factor * wv)
-        b.index_add_(1, pv, factor * bv)
+        upd = (factor * torch.stack([-wv, dbv[T:]])).view(2 * T, -1)
+        for a, z, parents in parts:
+            db.index_add_(1, parents, upd[:, a:z])
 
     # ---- core solve (loops) ----
     x = w.new_zeros(T, M + 1)
     if plan.core_size > 0:
         C = plan.core_size
-        cs = plan.core_slot
-        chu = cs[hu]
-        ctu = cs[tu]
-        both = (chu < C) & (ctu < C)
-        wc = torch.where(both, w, 0.0)
-        # L as rows of (C+1)^2 entries; scatter-adds in edge order
-        L = w.new_zeros(T, (C + 1) * (C + 1))
-        ar = torch.arange(C, device=w.device)
-        # diagonal comes from the eliminated d values at core nodes
-        L.index_add_(1, ar * (C + 2), d[:, plan.core_nodes])
-        L.index_add_(1, chu * (C + 1) + ctu, -wc)
-        L.index_add_(1, ctu * (C + 1) + chu, -wc)
-        A = L.view(T, C + 1, C + 1)[:, :C, :C]
+        core = _core_plan(system, plan)
+        # diagonal from the eliminated d values at core nodes, then the
+        # loop edges, summed in edge order
+        dcore = db[:T].index_select(1, plan.core_nodes)
+        L = w.new_zeros(T, C * C).index_copy_(
+            1, core.slots, segment_sum(core, torch.cat([dcore, w], dim=1)))
         ridge = 1e-12 * w.amax(dim=1) + 1e-30
         eye = torch.eye(C, dtype=dtype, device=w.device)
-        xc = torch.linalg.solve_ex(A + eye * ridge[:, None, None],
-                                   b[:, plan.core_nodes])[0]
+        xc = torch.linalg.solve_ex(L.view(T, C, C) + eye * ridge[:, None,
+                                                                   None],
+                                   db[T:].index_select(1, plan.core_nodes))[0]
         x[:, plan.core_nodes] = xc
 
     # ---- back substitution ----
-    for r in reversed(range(plan.num_rounds)):
-        ev, pv = plan.elim_nodes[r], plan.parents[r]
-        val = plan.valid[r]
-        wv = w_pad.index_select(1, plan.edge_idx[r])
-        dv = torch.where(val, d.index_select(1, ev), 1.0)
-        xv = (b.index_select(1, ev) + wv * x.index_select(1, pv)) / dv
+    for ev, pv, eidx, val, _ in reversed(plan.rounds):
+        wv = w_pad.index_select(1, eidx)
+        dbv = db.index_select(1, ev)
+        dv = torch.where(val, dbv[:T], 1.0)
+        xv = (dbv[T:] + wv * x.index_select(1, pv)) / dv
         x.index_copy_(1, ev, torch.where(val, xv, x.index_select(1, ev)))
     return x[:, :M]
+
+
+def _core_plan(system: FlowSystem, plan: EliminationPlan):
+    """The loop core's Laplacian on the C x C grid as a sparse sum over
+    [d at the core nodes (C), the edge weights (E)]: + d on the diagonal,
+    then - w at (h, t) and at (t, h) for edges within the core."""
+    C, E = plan.core_size, system.num_edges
+
+    def build():
+        cs = plan.core_slot.cpu().numpy()
+        slot = system.node_unknown_index.cpu().numpy()
+        ch = cs[slot[system.head.cpu().numpy()]]
+        ct = cs[slot[system.tail.cpu().numpy()]]
+        both = (ch < C) & (ct < C)
+        ar = np.arange(C)
+        edges = C + np.arange(E)
+        return plan_segment_sum(
+            np.concatenate([ar * (C + 1), np.where(both, ch * C + ct, -1),
+                            np.where(both, ct * C + ch, -1)]),
+            np.concatenate([ar, edges, edges]), C * C, C + E,
+            sign=np.repeat([1, -1, -1], [C, E, E]), dense=False,
+            device=system.device)
+
+    return cached(plan.plans, ("core", str(system.device)),
+                  (system.head, system.tail, system.node_unknown_index),
+                  build)

@@ -2,7 +2,8 @@
 max in one pass over the smoothed field.
 
 Counterpart of the JAX package's Pallas kernel ``_response_kernel`` in
-ops/vesselness_fused.py.  ``frangi_response_max_`` is the one entry:
+ops/vesselness_fused.py.  ``frangi_response_max_`` is the one entry
+(``frangi_response_fused``, the JAX package's functional form, calls it):
 
   * for CUDA tensors it launches the hand-written kernel of
     ``csrc/frangi_response.cu`` (built with nvcc for sm_90a at first use,
@@ -102,3 +103,31 @@ def frangi_response_max_(best, best_z0, sm, z_lo, zr, sigma, g,
 
 
 frangi_response_max_.launches = 0
+
+
+def frangi_response_fused(sm, sigma, g, alpha=0.5, beta=0.5, bright=True,
+                          z_lo=0, z_hi=None):
+    """Frangi response of ``sm`` rows [z_lo, z_hi): a (z_hi - z_lo, Y, X)
+    f32 tensor on ``sm``'s device (the JAX package's
+    ``frangi_response_fused``).
+
+    ``sm``: smoothed field (Zs, Y, X) f32.  Rows outside the output range
+    serve as real z-halos where ``sm`` has them; otherwise, and on the y/x
+    faces, the field is edge-replicated.  ``g``: the scale weight from the
+    S-max pass, a number or a one-element tensor.  CUDA tensors run K1
+    (``frangi_response_max_`` into a running max filled with -inf, one
+    launch counted there), CPU tensors its twin; any other device raises.
+
+    The JAX function's ``tile`` and ``interpret`` are TPU knobs (a VMEM
+    tiling, the Pallas interpreter) and have no counterpart here; nor do
+    its VMEM guards ``fused_response_supported``,
+    ``response_range_dynamic`` and ``region_grow_fused.fused_tile_fits``:
+    K1 takes every shape."""
+    if z_hi is None:
+        z_hi = sm.shape[0]
+    g = torch.as_tensor(g, dtype=torch.float32, device=sm.device).reshape(1)
+    out = torch.full((z_hi - z_lo,) + tuple(sm.shape[1:]), -float("inf"),
+                     dtype=torch.float32, device=sm.device)
+    frangi_response_max_(out, 0, sm, z_lo, z_hi - z_lo, sigma, g, alpha,
+                         beta, bright)
+    return out

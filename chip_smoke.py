@@ -15,7 +15,10 @@ Phases, each printing its own lines:
                plus a dark and a ragged call; device and call times; then
                the hard cases within 1e-6: X in {1, 2, 33, 167, 170,
                513} x Y in {1, 3, 17}, one-plane volumes, best_z0 > 0,
-               bowls the sign gate skips wholly or not at all;
+               bowls the sign gate skips wholly or not at all; then
+               frangi_response_fused (the functional form) on the slab,
+               all rows and rows [10, 58), within 1e-5 of the twin, one
+               K1 launch per call;
   4. small   — the port's run_pipeline on a small phantom on the CPU (twin)
                and on the card (kernel): the outputs must agree;
   5. pipeline_512 — run_pipeline on the 512x512x170 400-branch phantom
@@ -99,13 +102,18 @@ Phases, each printing its own lines:
                frangi_vesselness of the whole volume, (b) mask and
                skeleton equal to the single-device composition, (c) a
                segment, (d) the dp pressure rows equal to the
-               unsharded batch's, (e) K2 4 times per sweep (its interior
+               unsharded batch's and two unsharded runs bit-equal (no
+               global switch), (e) K2 4 times per sweep (its interior
                window) and K6b 8 times, (f) K6b on each padded block
                (int32, own-box and seed masks) equal to its plain
                version; halo bytes per iteration, a traced grow's idle
                share, peak device memory.
      dryrun_multichip — flagship.dryrun_multichip(4) and (8) on the card.
- 11. flow_solvers — bench.py::bench_flow_large's 16k-edge tree (depth
+ 11. flow_determinism — each solve run twice on the card gives the
+               same bits: pipeline_512's f32 solve, the 16k tree's f32
+               tree and CG solves, GBMTest5's T = 8 f64 batch (the flow
+               sums run in a fixed order, flow/segment_sum.py);
+     flow_solvers — bench.py::bench_flow_large's 16k-edge tree (depth
                13, 8,190 unknowns) solved f32 at tol 1e-9 with "auto" and
                the elimination plan (tree) and with "cg", f64 "cg" at the
                default tol 1e-14, and the flagship entry (depth 9, f32
@@ -121,7 +129,13 @@ Phases, each printing its own lines:
                the Darcy-Weisbach network): seconds per driver, finite
                outputs, the solver drivers equal to the port on the CPU
                within 1e-9, pickles written and read back.
- Phases 11-13 launch none of the repository's kernels (checked).
+ 14. figures — the CLI's study gbm5 and gbm5b (depth 10, T = 4) and
+               morpho with its 13 figures on graph_path_512's bundle, on
+               the card: seconds and figure files with their sizes (each
+               > 1000 bytes, none FAILED); pressure_velocity_arrays and
+               _volumes of pipeline_512's solution.  Without matplotlib
+               one line says how many figure calls did not run.
+ Phases 11-14 launch none of the repository's kernels (checked).
 
 A kernel's "ms" is its own kernels' device time per call from a
 torch.profiler trace (the plain version's and the library call's: all
@@ -138,7 +152,10 @@ the result line; so does a machine without a CUDA device.
 
 import contextlib
 import importlib
+import importlib.util
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -378,7 +395,7 @@ def phase_kernel(raw):
     from arterynetwork_tpu_torch.ops.vesselness import (_frobenius_max,
                                                         _smooth)
     from arterynetwork_tpu_torch.ops.vesselness_fused import (
-        frangi_response_max_, frangi_response_plain_)
+        frangi_response_fused, frangi_response_max_, frangi_response_plain_)
 
     dev = torch.device("cuda")
     halo, chunk_z = 10, 48        # the pipeline_512 chunk geometry
@@ -425,6 +442,31 @@ def phase_kernel(raw):
                         f"sigma 1.0 ragged {tuple(rag.shape)}")
     max_err = max(max_err, err)
     max_err = max(max_err, k1_hard_cases(dev))
+    # the functional form, frangi_response_fused (the JAX package's entry):
+    # all rows of the slab and a window inside it, against the twin
+    fused = []
+    sm = _smooth(slab, 1.0)
+    g = (_frobenius_max(sm, 1.0, halo, chunk_z) * 0.5).reshape(())
+    frangi_response_max_.launches = 0
+    for z_lo, z_hi in ((0, None), (halo, halo + chunk_z)):
+        out = frangi_response_fused(sm, 1.0, g, z_lo=z_lo, z_hi=z_hi)
+        fused.append((z_lo, z_hi, out))
+    fused_launches = frangi_response_max_.launches
+    for z_lo, z_hi, out in fused:
+        zr = (z_hi or sm.shape[0]) - z_lo
+        ref = torch.full_like(out, -float("inf"))
+        frangi_response_plain_(ref, 0, sm, z_lo, zr, 1.0, g)
+        err = float((out - ref).abs().max())
+        log("kernel", f"frangi_response_fused rows [{z_lo}, "
+            f"{z_lo + zr}) of {tuple(sm.shape)}: max|d| {err:.3e} from "
+            f"the twin")
+        if not (err <= K1_TOL and out.shape == (zr,) + tuple(sm.shape[1:])):
+            raise SystemExit(f"frangi_response_fused disagrees with the "
+                             f"twin: {err} > {K1_TOL}")
+        max_err = max(max_err, err)
+    if fused_launches != 2:
+        raise SystemExit(f"frangi_response_fused: {fused_launches} K1 "
+                         f"launches for 2 calls")
     # per launch at the main path's shape: the rows of sm it reads (one
     # beyond each end of the chunk), best read and written
     zs, plane = slab.shape[0], slab.shape[1] * slab.shape[2]
@@ -437,7 +479,7 @@ def phase_kernel(raw):
                  K1_OPS_PER_VOXEL * plane * chunk_z)
     log("kernel", f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
         f"{rec['bound_ms'] / rec['ms']:.1%} of it")
-    return {"max_abs_err": max_err, **rec}
+    return {"max_abs_err": max_err, **rec}, fused_launches
 
 
 def phase_small():
@@ -519,7 +561,7 @@ def phase_pipeline(phantom, raw):
         raise SystemExit(f"mask recall {recall} < {RECALL_MIN}")
     if sol.pressure.shape[0] != result["network"].num_nodes:
         raise SystemExit("pressure vector does not match the network")
-    return launches[-1]
+    return launches[-1], result
 
 
 def _ops(name):
@@ -1519,6 +1561,7 @@ MORPHO_FILES = ("segmentInfoDict.pkl", "nodeInfoDict.pkl",
                 "partitionInfo.pkl", "chosenVoxelsForPartition.pkl",
                 "segmentListCleaned.npz",
                 "graphRepresentationCleanedWithAdvancedInfo.graphml")
+MORPHO_STORE = "build/graph_path_512_morpho"   # kept for the figures phase
 
 
 def _edge_set(net, node_of):
@@ -1767,6 +1810,11 @@ def phase_graph_path(phantom, raw):
                f"{overall['numBranches']}, partitions "
                f"{sorted(stats['statisticsPerPartition'])}, curvature on "
                f"{n_curved} of {len(seg_info)} segments")
+        # the bundle morpho reads, for the figures phase
+        shutil.rmtree(MORPHO_STORE, ignore_errors=True)
+        os.makedirs(MORPHO_STORE)
+        for n in MORPHO_FILES + GRAPH_STORE_FILES[:3]:
+            shutil.copy(store.path(n), MORPHO_STORE)
 
     # (d) the slice never imported networkx, JAX or matplotlib
     loaded = sorted({m.split(".")[0] for m in sys.modules
@@ -1802,9 +1850,8 @@ def phase_sharded_512(raw):
     the single-device composition on the card (tests/test_parallel.py's),
     (c) at least one segment, (d) the dp-split rows of the timestep batch
     (f32 CG, 30 Newton steps at most) on the pipeline's network finite
-    and equal to the unsharded batch's, both solved with torch's
-    deterministic algorithms (index_add_ otherwise sums in no fixed order
-    on the card: the spread of two plain unsharded runs is printed), (e)
+    and bit-equal to the unsharded batch's, itself bit-equal between two
+    runs (the flow sums run in a fixed order; no global switch), (e)
     K2 launched 4 times per sweep of the grower and K6b 8 times (2 per
     block), (f) K6b on each padded block at the grower's inputs (int32,
     own-box and seed masks) equal to its plain version, the blocks' sums
@@ -1919,18 +1966,21 @@ def phase_sharded_512(raw):
             return solve_pressure_newton_batch(batch, max_iter=30,
                                                linear_solver="cg")
 
-        spread = _rel_diff(unsharded().pressure.cpu(),
-                           unsharded().pressure.cpu())
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            dp_sol = solve_batch_dp(system, fixed, slots=mesh, max_iter=30,
-                                    linear_solver="cg")
-            one = unsharded()
-        finally:
-            torch.use_deterministic_algorithms(False)
+        one = unsharded().pressure.cpu().numpy()
+        two = unsharded().pressure.cpu().numpy()
+        spread = _rel_diff(one, two)
+        dp_sol = solve_batch_dp(system, fixed, slots=mesh, max_iter=30,
+                                linear_solver="cg")
         rows = dp_sol.pressure.cpu().numpy()
-        bit_equal = bool(np.array_equal(rows, one.pressure.cpu().numpy()))
+        bit_equal = (one.tobytes() == two.tobytes() == rows.tobytes())
         resid = float(dp_sol.residual_norm.max())
+        # the network and its boundary for a solve elsewhere (the JAX
+        # package's against the port's, on a CPU)
+        os.makedirs("build", exist_ok=True)
+        np.savez("build/sharded_512_network.npz", boundary_pressure=bp,
+                 **{f.name: getattr(net, f.name) for f in
+                    dataclasses.fields(net)
+                    if isinstance(getattr(net, f.name), np.ndarray)})
     gate_d = bool(bit_equal) and bool(np.isfinite(rows).all())
     gate_e = (counts["region_grow_sweep"] == 4 * sweeps
               and counts["masked_histogram1"] == 8)
@@ -2009,8 +2059,9 @@ def phase_sharded_512(raw):
         f"({idle1:.1%} idle); peak device memory {max(peaks):.0f} MiB; "
         f"the pipeline's pressures {out['pipeline_pressures']}; dp rows "
         f"on its {n_nodes}-node network ({bp_from}) bit-equal to the "
-        f"unsharded batch (deterministic algorithms) {bit_equal}, max "
-        f"residual {resid} m^3/s; two plain unsharded runs differ by "
+        f"unsharded batch, and two unsharded runs to each other, "
+        f"{bit_equal}, max "
+        f"residual {resid} m^3/s; two unsharded runs differ by "
         f"{spread} (relative); gates {out['gates']}")
     print(json.dumps(out), flush=True)
     if not all(out["gates"].values()):
@@ -2088,6 +2139,70 @@ def _no_launches(phase):
     counts = {k: v for k, v in read_counts().items() if v}
     if counts:
         raise SystemExit(f"{phase}: kernel launches {counts}, expected none")
+
+
+def phase_flow_determinism(net512):
+    """Each flow solve run twice on the card, with no global switch, must
+    give the same bits (pressures, flows, residuals, iterations):
+    pipeline_512's f32 solve (its network and boundary, as run_pipeline
+    solves it), the 16k tree's f32 solves with the elimination plan and
+    with CG, and GBMTest5's T = 8 f64 batch on that tree.  (sharded_512's
+    gate (d) holds its dp rows to the same rule.)"""
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.flow import build_system, create_ground_truth
+    from arterynetwork_tpu_torch.flow.longitudinal import (
+        build_timestep_batch, solve_timestep_batch)
+    from arterynetwork_tpu_torch.flow.solvers import solve_pressure_newton
+    from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
+    from arterynetwork_tpu_torch.pipeline import _solve_network
+
+    reset_counts()
+    net, gt = _bench_tree(FLOW_DEPTH)
+    sys32 = build_system(net, boundary_pressure=gt.pressure,
+                         dtype=torch.float32, device="cuda")
+    plan = plan_elimination(sys32)
+    lnet, parts, radius_end, rng = _study_net(FLOW_DEPTH)
+    lgt = create_ground_truth(lnet, option=2, rng=rng)
+    batch = build_timestep_batch(lnet, lgt.pressure, radius_end, LONG_T, 1,
+                                 partitions=parts)
+    flow_cfg = bench_config().flow
+    cases = {
+        "pipeline_512_f32": lambda: _solve_network(
+            net512, {}, flow_cfg, device="cuda")[1],
+        "flow_16k_tree_f32": lambda: solve_pressure_newton(
+            sys32, max_iter=60, tol=1e-9, linear_solver="auto", plan=plan),
+        "flow_16k_cg_f32": lambda: solve_pressure_newton(
+            sys32, max_iter=60, tol=1e-9, linear_solver="cg"),
+        f"longitudinal_T{LONG_T}_f64": lambda: solve_timestep_batch(
+            lnet, batch, dtype=torch.float64, device="cuda"),
+    }
+    out = {"phase": "flow_determinism", "solves": {}}
+    for name, fn in cases.items():
+        runs = [fn() for _ in range(2)]
+        bits = [b"".join(np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                         .tobytes() for x in (s.pressure, s.flow,
+                                              s.residual_norm, s.iterations))
+                for s in runs]
+        sol = runs[0]
+        rec = {"bit_equal": bits[0] == bits[1],
+               "rel_diff": _rel_diff(runs[0].pressure.cpu(),
+                                     runs[1].pressure.cpu()),
+               "iterations": np.asarray(sol.iterations.cpu() if torch.is_tensor(
+                   sol.iterations) else sol.iterations).tolist(),
+               "max_residual_m3s": float(sol.residual_norm.max()),
+               "dtype": str(sol.pressure.dtype)}
+        out["solves"][name] = rec
+        log("flow_determinism", f"{name}: two runs bit-equal "
+            f"{rec['bit_equal']} (rel diff {rec['rel_diff']:.3e}); "
+            f"iterations {rec['iterations']}, max residual "
+            f"{rec['max_residual_m3s']:.3e} m^3/s")
+    _no_launches("flow_determinism")
+    print(json.dumps(out), flush=True)
+    if not all(r["bit_equal"] for r in out["solves"].values()):
+        raise SystemExit("flow_determinism: a solve differs between runs")
+    return out
 
 
 def phase_flow_solvers():
@@ -2399,6 +2514,107 @@ def phase_studies():
     return out
 
 
+def phase_figures(result512):
+    """The figure paths on the card (--device cuda): the CLI's ``study
+    gbm5`` and ``gbm5b`` on the studies_2k tree (depth 10, the CLI's T =
+    4) and ``morpho`` with its figures on graph_path_512's bundle, each
+    timed, with the figure files and their sizes; then viz's numpy part,
+    ``pressure_velocity_arrays`` and ``pressure_velocity_volumes`` of
+    pipeline_512's solution.  Where matplotlib does not import, one line
+    says so with the number of figure calls not run; each command then
+    runs up to its first figure, which must raise ImportError naming
+    matplotlib (gbm5's four pickles written before it), and the numpy
+    part still runs."""
+    import io
+
+    import numpy as np
+
+    from arterynetwork_tpu_torch.__main__ import main as cli
+    from arterynetwork_tpu_torch.viz import (pressure_velocity_arrays,
+                                             pressure_velocity_volumes)
+
+    reset_counts()
+    out = {"phase": "figures", "seconds": {}, "files": {}}
+    runs = {
+        "study gbm5": ["study", "gbm5", "--depth", str(STUDY_DEPTH)],
+        "study gbm5b": ["study", "gbm5b", "--depth", str(STUDY_DEPTH)],
+        "morpho": ["morpho", MORPHO_STORE],
+    }
+    n_figures = {"study gbm5": 4 + 2, "study gbm5b": 1, "morpho": 13}
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not have_mpl:
+        log("figures", f"matplotlib does not import here: "
+            f"{sum(n_figures.values())} figure calls not run "
+            f"({', '.join(f'{k} {v}' for k, v in n_figures.items())}); "
+            f"each command runs up to its first figure, which must "
+            f"raise ImportError naming matplotlib")
+    for name, argv in runs.items():
+        d = (MORPHO_STORE if name == "morpho"
+             else os.path.join("build", "figures", name.split()[-1]))
+        if d != MORPHO_STORE:
+            shutil.rmtree(d, ignore_errors=True)
+            argv = argv + ["--out", d]
+        before = set(os.listdir(d)) if os.path.isdir(d) else set()
+        buf = io.StringIO()
+        missing = None
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            try:
+                cli(argv + ["--device", "cuda"])
+            except ImportError as exc:
+                if have_mpl or "matplotlib" not in str(exc):
+                    raise
+                missing = str(exc)
+        out["seconds"][name] = time.perf_counter() - t0
+        written = sorted(set(os.listdir(d)) - before)
+        if not have_mpl:
+            log("figures", f"{name}: {out['seconds'][name]:.2f} s up to "
+                f"its figures, which raised ImportError ({missing}); "
+                f"files written before them: {written}")
+            if missing is None or (name == "study gbm5" and len(
+                    [f for f in written if f.endswith(".pkl")]) != 4):
+                raise SystemExit(f"figures {name}: no ImportError, or the "
+                                 f"GBMTest5 pickles missing")
+            continue
+        summary = json.loads(buf.getvalue())
+        files = {f: os.path.getsize(os.path.join(d, f)) for f in written
+                 if f.endswith(".png")}
+        out["files"][name] = files
+        figs = summary.get("figures")        # morpho's {name: path}
+        failed = {k: v for k, v in (figs if isinstance(figs, dict)
+                                    else {}).items()
+                  if str(v).startswith("FAILED")}
+        log("figures", f"{name}: {out['seconds'][name]:.2f} s; "
+            f"{len(files)} figures: "
+            + ", ".join(f"{f} {b}" for f, b in files.items()))
+        if failed or len(files) != n_figures[name] or \
+                min(files.values(), default=0) <= 1000:
+            raise SystemExit(f"figures {name}: {len(files)} files of "
+                             f"{n_figures[name]}, failed {failed}")
+    # viz's numpy part on pipeline_512's solution
+    net, segs = result512["network"], result512["segments"]
+    t0 = time.perf_counter()
+    parr, varr = pressure_velocity_arrays(segs, range(len(segs)), net,
+                                          net.node_pressure,
+                                          net.edge_velocity)
+    pv, vv = pressure_velocity_volumes(result512["mask"].shape, parr, varr)
+    out["seconds"]["pressure_velocity"] = time.perf_counter() - t0
+    painted = int(np.count_nonzero(pv))
+    log("figures", f"pressure_velocity_arrays/volumes of pipeline_512: "
+        f"{out['seconds']['pressure_velocity']:.2f} s, {len(parr)} rows "
+        f"for {net.num_edges} edges, {painted} voxels painted, pressure "
+        f"{float(pv[pv != 0].min()):.1f}-{float(pv.max()):.1f} Pa, "
+        f"|velocity| max {float(vv.max()):.4f} m/s")
+    if not (len(parr) == len(varr) > 0 and painted > 0
+            and np.isfinite(pv).all() and np.isfinite(vv).all()):
+        raise SystemExit("figures: pressure_velocity arrays empty or "
+                         "non-finite")
+    _no_launches("figures")
+    out["matplotlib"] = have_mpl
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2415,9 +2631,9 @@ def main():
         f"{int(phantom['mask'].sum())} vessel voxels: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    k1 = phase_kernel(raw)
+    k1, fused_launches = phase_kernel(raw)
     phase_small()
-    launches = phase_pipeline(phantom, raw)
+    launches, result512 = phase_pipeline(phantom, raw)
 
     from arterynetwork_tpu_torch.utils.phantoms import tube_phantom
 
@@ -2436,10 +2652,13 @@ def main():
     log("timing", f"sharded_512 and dryrun_multichip: "
         f"{time.perf_counter() - t1:.1f} s")
     t_flow = time.perf_counter()
-    for phase in (phase_flow_solvers, phase_longitudinal, phase_studies):
+    for phase in (lambda: phase_flow_determinism(result512["network"]),
+                  phase_flow_solvers, phase_longitudinal, phase_studies,
+                  lambda: phase_figures(result512)):
         t1 = time.perf_counter()
         phase()
-        log("timing", f"{phase.__name__}: {time.perf_counter() - t1:.1f} s")
+        log("timing", f"{getattr(phase, '__name__', '<lambda>')}: "
+            f"{time.perf_counter() - t1:.1f} s")
     log("timing", f"from the data phase to the flow phases "
         f"{t_flow - t0:.1f} s; the flow phases "
         f"{time.perf_counter() - t_flow:.1f} s")
@@ -2452,7 +2671,8 @@ def main():
              "frangi_vesselness_chunked": {
                  "frangi_response": voxel["chunked"]},
              "sharded_512": sharded_counts,
-             "dryrun_multichip(8)": dryrun_counts}
+             "dryrun_multichip(8)": dryrun_counts,
+             "frangi_response_fused": {"frangi_response": fused_launches}}
     log("launches", json.dumps({p: {k: v for k, v in c.items() if v}
                                 for p, c in paths.items()}))
 

@@ -501,8 +501,9 @@ def _forbidden(name):
 
 def _optional(name):
     """Packages the port must not need: networkx (allowed only in the
-    interop method ``FlowNetwork.to_networkx``) and matplotlib."""
-    return name.split(".")[0] in ("networkx", "matplotlib")
+    interop method ``FlowNetwork.to_networkx``) and matplotlib with its
+    mpl_toolkits (allowed only inside viz's figure functions)."""
+    return name.split(".")[0] in ("networkx", "matplotlib", "mpl_toolkits")
 
 
 def _imports(tree):
@@ -530,7 +531,9 @@ def test_port_imports_no_jax():
     JAX package (by the import statements' AST, so comments and strings
     naming the source do not count; ``arterynetwork_tpu_torch`` is not
     ``arterynetwork_tpu``); none imports networkx or matplotlib, except
-    networkx inside ``FlowNetwork.to_networkx`` (graphs/network.py)."""
+    networkx inside ``FlowNetwork.to_networkx`` (graphs/network.py) and
+    matplotlib inside the figure functions of viz/ (never at a module's
+    top level, so ``import arterynetwork_tpu_torch.viz`` needs none)."""
     files = sorted((REPO / "arterynetwork_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
@@ -543,7 +546,10 @@ def test_port_imports_no_jax():
            "parallel/dcn_smoke.py", "parallel/__init__.py",
            "utils/hostmem.py", "utils/profiling.py", "utils/debug.py",
            "utils/reference_protocol.py", "utils/reference_region_grow.py",
-           "io/stitch.py"}
+           "io/stitch.py",
+           # the viz slice and the fixed-order flow sums
+           "viz/_mpl.py", "viz/helpers.py", "viz/network_plot.py",
+           "viz/study_plots.py", "viz/__init__.py", "flow/segment_sum.py"}
     assert new <= {p.relative_to(REPO / "arterynetwork_tpu_torch")
                    .as_posix() for p in files[:-1]}
     bad, optional = [], []
@@ -559,7 +565,15 @@ def test_port_imports_no_jax():
     allowed = [w for w, fn in optional
                if fn == "to_networkx" and "graphs/network.py" in w]
     assert len(allowed) == 1, optional
+    figures = [w for w, fn in optional if fn is not None
+               and "arterynetwork_tpu_torch/viz/" in w
+               and w.split()[-1].split(".")[0] in ("matplotlib",
+                                                   "mpl_toolkits")]
+    assert any("viz/_mpl.py" in w and w.endswith(" matplotlib.pyplot")
+               for w in figures), figures
+    allowed += figures
     assert [o for o in optional if o[0] not in allowed] == []
     assert _forbidden("arterynetwork_tpu.flow") and _forbidden("jax.numpy")
     assert not _forbidden("arterynetwork_tpu_torch.flow")
     assert _optional("networkx.readwrite") and _optional("matplotlib.pyplot")
+    assert _optional("mpl_toolkits.mplot3d")

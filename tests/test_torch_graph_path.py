@@ -587,14 +587,32 @@ def test_cli_matches_jax(tmp_path, capsys):
     np.testing.assert_equal(seg_info, JStore(str(tmp_path / "j"))
                             .load_pickle("segmentInfoDict.pkl"))
 
-    # the figure paths are not ported: they raise before any work
-    with pytest.raises(NotImplementedError, match="viz"):
-        main(["morpho", str(tmp_path / "t"), "--device", "cpu"])
-    for name in ("gbm5", "gbm5b"):
-        with pytest.raises(NotImplementedError, match="viz"):
-            main(["study", name, "--out", str(tmp_path / name),
-                  "--device", "cpu"])
-        assert not os.path.exists(tmp_path / name)
+    # the figure paths in both packages: morpho with its figures, then
+    # study gbm5 and gbm5b; the same files, the same figure keys (none
+    # FAILED) and the same summaries
+    figs = {}
+    for lib, fn, extra in (("t", main, ["--device", "cpu"]),
+                           ("j", j_main, [])):
+        d = str(tmp_path / lib)
+        morpho = _run_cli(fn, ["morpho", d] + extra, capsys)
+        studies = []
+        for name in ("gbm5", "gbm5b"):
+            sd = str(tmp_path / f"{lib}_{name}")
+            studies.append(_run_cli(fn, ["study", name, "--out", sd,
+                                         "--timesteps", "3", "--depth",
+                                         "5"] + extra, capsys))
+            studies.append(sorted(os.listdir(sd)))
+        figs[lib] = (morpho, studies, sorted(os.listdir(d)))
+    (mt, st, ft), (mj, sj, fj) = figs["t"], figs["j"]
+    assert mt["figures"].keys() == mj["figures"].keys()
+    assert len(mt["figures"]) == 13 and not any(
+        str(v).startswith("FAILED")
+        for v in list(mt["figures"].values()) + list(mj["figures"].values()))
+    assert {k: v for k, v in mt.items() if k != "figures"} == \
+        {k: v for k, v in mj.items() if k != "figures"}
+    assert ft == fj and all(k + ".png" in ft for k in mt["figures"])
+    assert st == sj
+    assert "gbm5_network_t0.png" in st[1] and "gbm5b_volumes.png" in st[3]
     info = _run_cli(main, ["info"], capsys)
     assert info["torch"] == torch.__version__ and \
         info["cuda_available"] is torch.cuda.is_available()

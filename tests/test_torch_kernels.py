@@ -427,3 +427,69 @@ def test_f64_auto_on_card_matches_cpu_full_grid(cuda):
             int(out.stop_reason)) == (int(ref.iterations),
                                       int(ref.segmented_count),
                                       int(ref.stop_reason))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("z_lo,z_hi", [(0, None), (3, 33), (17, 18)])
+def test_response_fused_kernel_matches_twin(cuda, z_lo, z_hi):
+    """``frangi_response_fused`` (the functional form) launches K1 once
+    per call on a card and stays within 1e-6 of the twin on the same
+    card (the CPU's libm differs from the card's in the last bits)."""
+    from arterynetwork_tpu_torch.ops import frangi_response_fused
+
+    sm = _smoothed((36, 40, 53), 1.0, device=cuda)
+    g = _g(sm)
+    zr = (z_hi or sm.shape[0]) - z_lo
+    ref = torch.full((zr,) + tuple(sm.shape[1:]), -float("inf"),
+                     device=cuda)
+    frangi_response_plain_(ref, 0, sm, z_lo, zr, 1.0, g)
+    n0 = frangi_response_max_.launches
+    out = frangi_response_fused(sm, 1.0, g, z_lo=z_lo, z_hi=z_hi)
+    assert frangi_response_max_.launches == n0 + 1
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_flow_sums_and_solves_repeat_on_the_card(cuda):
+    """Two calls on the card give the same bits: a fixed-order segment
+    sum with heavy repeats, and f32 CG and tree solves on a tree with
+    merge loops; the card's solve agrees with the CPU's within f32."""
+    from arterynetwork_tpu_torch.flow import (build_system,
+                                              create_ground_truth,
+                                              segment_sum)
+    from arterynetwork_tpu_torch.flow.solvers import solve_pressure_newton
+    from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
+    from arterynetwork_tpu_torch.graphs import (generate_tree,
+                                                set_network_properties)
+
+    def bits(t):
+        return t.cpu().numpy().tobytes()
+
+    rng = np.random.default_rng(3)
+    K, S = 4096, 64
+    plan = segment_sum.plan_segment_sum(rng.integers(0, S, K),
+                                        np.arange(K), S, K, device=cuda)
+    src = torch.as_tensor(rng.standard_normal((21, K)) * 10.0 **
+                          rng.integers(-8, 8, (21, K)),
+                          dtype=torch.float32, device=cuda)
+    assert bits(segment_sum.segment_sum(plan, src)) == \
+        bits(segment_sum.segment_sum(plan, src))
+    rng = np.random.default_rng(0)
+    net = set_network_properties(generate_tree(max_depth=7,
+                                               allow_merge=True, rng=rng),
+                                 k_value=1.852, rng=rng)
+    gt = create_ground_truth(net, option=2, rng=np.random.default_rng(7))
+    for dev in ("cpu", cuda):
+        system = build_system(net, boundary_pressure=gt.pressure,
+                              dtype=torch.float32, device=dev)
+        tree = plan_elimination(system)
+        assert tree.core_size > 0
+        for kw in (dict(linear_solver="cg"),
+                   dict(linear_solver="tree", plan=tree)):
+            a, b = (solve_pressure_newton(system, **kw) for _ in range(2))
+            assert bits(a.pressure) == bits(b.pressure)
+            assert bits(a.flow) == bits(b.flow)
+            rel = float((a.pressure.double().cpu() - torch.as_tensor(
+                gt.pressure)).abs().max() / abs(gt.pressure).max())
+            assert rel <= 1e-5

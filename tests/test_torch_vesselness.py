@@ -13,7 +13,10 @@ field.  Tolerances (values measured on a CPU in brackets):
     eigenvalues by 4e-6 against eager XLA); everywhere else <= 4e-6.
   * streamed multiscale vesselness, bq4 with the occupancy skip and u12:
     |d| <= 1e-4 everywhere [max 3.4e-5 for bq4, 2.8e-5 for u12];
-  * device-side dequantization: bit-exact.
+  * device-side dequantization: bit-exact;
+  * ``frangi_response_fused`` (the functional form over K1's twin)
+    against the JAX function in interpret mode on all rows, a window
+    with real halos and one-row windows: K1's bound above.
 """
 
 import numpy as np
@@ -158,3 +161,60 @@ def test_dequant_bit_exact(fmt):
                            torch.from_numpy(rsc), torch.from_numpy(rmn),
                            start, bits)
     np.testing.assert_array_equal(zt.numpy(), np.asarray(ref))
+
+
+# ----------------------------------------------------------------------
+# frangi_response_fused: the JAX package's functional form of K1
+# ----------------------------------------------------------------------
+def _k1_bound(out, ref):
+    """K1's bound against the JAX kernel: |d| <= 1e-5 + 1e-4 |ref|."""
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bright", [True, False])
+@pytest.mark.parametrize("z_lo,z_hi", [(0, None), (3, 43), (17, 18),
+                                       (0, 1), (43, 44)])
+@pytest.mark.parametrize("sigma", [1.0, 3.0])
+def test_response_fused_matches_pallas_interpret(sigma, z_lo, z_hi, bright):
+    """All rows, a [z_lo, z_hi) window with real halos, one-row windows
+    inside and at both ends (edge replication), bright and dark."""
+    from arterynetwork_tpu_torch.ops import frangi_response_fused as fused_t
+
+    smj, g = _smoothed(sigma)
+    ref = np.asarray(frangi_response_fused(smj, sigma, jnp.float32(g),
+                                           bright=bright, z_lo=z_lo,
+                                           z_hi=z_hi, tile=(4, 8),
+                                           interpret=True))
+    out = fused_t(torch.from_numpy(np.array(smj)), sigma, float(g),
+                  bright=bright, z_lo=z_lo, z_hi=z_hi)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _k1_bound(out.numpy(), ref)
+
+
+def test_response_fused_is_the_twins_running_max():
+    """The functional form equals frangi_response_max_ into a zeroed
+    best (the response is >= 0), with g as a number or a tensor; a
+    device with no K1 raises."""
+    from arterynetwork_tpu_torch.ops.vesselness_fused import \
+        frangi_response_fused as fused_t
+
+    smj, g = _smoothed(2.0)
+    sm = torch.from_numpy(np.array(smj))
+    best = torch.zeros((12,) + tuple(sm.shape[1:]))
+    frangi_response_max_(best, 0, sm, 5, 12, 2.0, torch.tensor(g))
+    for gg in (float(g), torch.tensor(g), torch.tensor([g])):
+        out = fused_t(sm, 2.0, gg, z_lo=5, z_hi=17)
+        assert torch.equal(out, best)
+    with pytest.raises(ValueError):
+        fused_t(sm.to("meta"), 2.0, g)
+
+
+def test_graphs_exports_are_the_network_module_objects():
+    import arterynetwork_tpu.graphs as jgraphs
+    import arterynetwork_tpu_torch.graphs as tgraphs
+    from arterynetwork_tpu_torch.graphs import network
+
+    assert tgraphs.__all__ == jgraphs.__all__
+    for name in ("FlowNetwork", "make_network", "orient_edges_by_depth",
+                 "validate_network"):
+        assert getattr(tgraphs, name) is getattr(network, name)
