@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/config.py, unchanged.
+# Copy of arterynetwork_tpu/config.py; its comments describe the port.
 """Typed pipeline configuration.
 
 The reference has no config system: constants are hard-coded at use sites
@@ -20,11 +20,10 @@ from .constants import DEFAULT_SPACING, INLET_FLOW, INLET_PRESSURE
 class VesselnessConfig:
     """Frangi filter (replaces the reference's external SlicerVMTK step,
     README.md:37-65)."""
-    # add a 0.75 scale when radius-1 tips matter: on the bench phantoms
-    # it lifted mask recall 0.958 -> 0.985-0.988 and terminal recovery
-    # 190-201 -> 197-219 of 202 at held centerline precision, seeds 0-4
-    # (TIPRECALL_r05.jsonl); time-neutral in the streamed pipeline
-    # (every scale's gamma pass hides under the upload wire)
+    # add a 0.75 scale when radius-1 tips matter: the JAX package's
+    # phantom study (TIPRECALL_r05.jsonl) recovered more thin tips with
+    # it at held centerline precision.  In the port each scale adds one
+    # gamma pass and one K1 launch per slab of the streamed driver.
     sigmas: Tuple[float, ...] = (1.0, 2.0, 3.0)
     alpha: float = 0.5
     beta: float = 0.5
@@ -41,28 +40,23 @@ class VesselnessConfig:
     # your own acquisitions before dropping below bq4), or "f16"
     # (utils/transfer.upload_quantized)
     upload_format: str = "u12"
-    # fused Pallas response kernel (Hessian+eigen+tubularity in one
-    # pass from the smoothed field, ops/vesselness_fused.py).  Proven
-    # on hardware in round 5 (REVALIDATE_r05.json): 1.51x the XLA
-    # apply path at the Speck 880x880 plane, wall-neutral at 512,
-    # max |diff| ~1e-5 (below the round-4 mask-threshold sensitivity).
-    # "auto" = fused on a real TPU, XLA elsewhere (interpret-mode
-    # Pallas would slow the CPU test mesh for no benefit); dispatch
-    # additionally guards on fused_response_supported() — unsupported
-    # lane extents fall back to the XLA path.  True/False force it.
+    # the JAX package's switch between its fused Pallas response kernel
+    # and its XLA apply path.  The port keeps the field so that a JAX
+    # configuration converts, and does not read it: its slab drivers
+    # always fold the response (Hessian + eigenvalues + tubularity from
+    # the smoothed field) through K1 (ops/vesselness_fused.py) on a CUDA
+    # device, and through K1's plain PyTorch twin on the CPU.
     fused_response: Union[bool, str] = "auto"
     # Occupancy-skipped upload for the bq formats: (z,y)-row chunks whose
     # intensity range is below 25% of the slab range (pure background on
     # MRA-like data — vessel contrast >> noise) ship no payload bytes and
     # dequantize to their row midpoint; kept chunks decode bit-exactly
-    # (one-hot-matmul scatter, ops/vesselness._upload_slab_bq_sparse).
-    # The wire is the vesselness stage's bottleneck and 80-90% of rows
-    # are background at both bench scales (13-27% of chunks kept), so
-    # this cuts the stage's upload phase ~2x (512: 1.14 -> 0.54 s;
-    # Speck: 8.1 -> 4.8 s on matched runs).  Fidelity-identical on the
-    # bench phantoms seeds 0-2 (UPLOADSKIP_r05.jsonl: every tree metric
-    # equal, mask voxels within 7 of 338k).  Flip off for acquisitions
-    # where sub-noise background detail matters.
+    # (one index_copy_, ops/vesselness._upload_slab_bq_sparse).  Most
+    # rows of the bench phantoms are background, so this cuts the bytes
+    # the upload sends by the skipped share.  The JAX package's phantom
+    # study (UPLOADSKIP_r05.jsonl) found every tree metric equal with
+    # and without it.  Flip off for acquisitions where sub-noise
+    # background detail matters.
     upload_skip: bool = True
 
 

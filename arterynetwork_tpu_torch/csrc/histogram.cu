@@ -9,8 +9,10 @@
 //
 // The TPU kernels factor each bin into two 16-wide one-hots and contract
 // them on the matrix unit, accumulating in f32 (exact only below 2^24 per
-// bin).  Here every count is an int32 atomic, exact at any count; the
-// wrapper casts to f32 once.
+// bin).  Here every count is an integer atomic: int32 in a block's shared
+// histogram (the grid holds 8 blocks per SM, so a block counts fewer than
+// 2^31 voxels while n < 2^41 on an H100), 64-bit in the global one, which
+// a bin holding 2^31 voxels or more needs.  The wrapper casts to f32 once.
 //
 // What bounds it on this card: each voxel moves 1 + NM bytes, so a
 // 512x512x170 volume is ~90-135 MB (~30-40 us at 3.35 TB/s), and each
@@ -43,7 +45,7 @@ __global__ void __launch_bounds__(kThreads)
 masked_hist_kernel(const uint8_t* __restrict__ bins,
                    const uint8_t* __restrict__ m0,
                    const uint8_t* __restrict__ m1, long long n,
-                   int num_bins, int* __restrict__ out) {
+                   int num_bins, unsigned long long* __restrict__ out) {
   __shared__ int h[NM][kBins];
   for (int i = threadIdx.x; i < NM * kBins; i += blockDim.x)
     (&h[0][0])[i] = 0;
@@ -75,13 +77,13 @@ masked_hist_kernel(const uint8_t* __restrict__ bins,
 
   for (int i = threadIdx.x; i < NM * num_bins; i += blockDim.x) {
     const int v = h[i / num_bins][i % num_bins];
-    if (v) atomicAdd(&out[i], v);
+    if (v) atomicAdd(&out[i], (unsigned long long)v);
   }
 }
 
 template <int NM>
 int launch(const uint8_t* bins, const uint8_t* m0, const uint8_t* m1,
-           long long n, int num_bins, int* out, int n_sm,
+           long long n, int num_bins, unsigned long long* out, int n_sm,
            cudaStream_t stream) {
   if (n <= 0) return 0;
   const bool vec = ((reinterpret_cast<uintptr_t>(bins)
@@ -103,7 +105,7 @@ int launch(const uint8_t* bins, const uint8_t* m0, const uint8_t* m1,
 
 }  // namespace
 
-// out: int32[n_masks][num_bins], zeroed by the caller; masks may be equal.
+// out: int64[n_masks][num_bins], zeroed by the caller; masks may be equal.
 // n_masks is 1 (m1 ignored) or 2; num_bins <= 256 and every bin id is
 // below num_bins.  Launches on `stream` and returns cudaGetLastError()
 // (0 = launched).
@@ -113,7 +115,7 @@ extern "C" int masked_histograms_u8(const void* bins, const void* m0,
                                     int n_sm, void* stream) {
   const auto* b = static_cast<const uint8_t*>(bins);
   const auto* a = static_cast<const uint8_t*>(m0);
-  auto* o = static_cast<int*>(out);
+  auto* o = static_cast<unsigned long long*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (n_masks == 1) return launch<1>(b, a, a, n, num_bins, o, n_sm, s);
   return launch<2>(b, a, static_cast<const uint8_t*>(m1), n, num_bins, o,

@@ -68,8 +68,7 @@ def _sparse_argwhere(vol: np.ndarray) -> np.ndarray:
 
     Native word-skipping scan when the C library is available (all-zero
     8-byte words skipped — memory-read speed), else packed-byte scan
-    (8 voxels at a time, unpack only nonzero bytes; ~4x faster than
-    argwhere at skeleton densities <0.1%)."""
+    (8 voxels at a time, unpack only nonzero bytes)."""
     if vol.dtype in (np.dtype(bool), np.dtype(np.uint8)):
         try:
             from ..ops.native import nonzero_flat_native
@@ -81,7 +80,7 @@ def _sparse_argwhere(vol: np.ndarray) -> np.ndarray:
         except Exception:
             pass  # no toolchain: packed-byte fallback below
     # np.packbits accepts bool input directly: no full-volume uint8
-    # copy (a fresh 0.5 GB first-touch at Speck scale on this VM)
+    # copy (a fresh 0.5 GB array at Speck scale)
     flat = vol.reshape(-1)
     if not flat.flags["C_CONTIGUOUS"]:
         flat = np.ascontiguousarray(flat)
@@ -838,9 +837,8 @@ def skeleton_to_segments(skeleton, prune_min_length: int = 0,
         chains = None
         try:
             # native extractor (graph_ops.cpp): the whole walk +
-            # simplification pipeline, bit-exact with the Python passes
-            # (~20x on the 1-core host); fall through on any build
-            # failure
+            # simplification pipeline, bit-exact with the Python passes;
+            # fall through on any build failure
             from ..ops.native import simplify_chains_native
             chains = simplify_chains_native(
                 np.searchsorted(uniq, a), np.searchsorted(uniq, b),

@@ -12,8 +12,9 @@ share one CUDA source, ``csrc/histogram.cu``:
   * for CPU tensors they run ``masked_histograms_plain``, the plain
     PyTorch version (``torch.bincount`` of the masked bins).
 
-Counts are int32, exact at any count, cast to f32 once: the TPU kernels
-and the JAX CPU path (f32 scatter-add) stop counting exactly at 2^24 per
+Counts are exact integers (64-bit in the kernel's global histogram: a
+bin may hold 2^31 voxels or more), cast to f32 once: the TPU kernels and
+the JAX CPU path (f32 scatter-add) stop counting exactly at 2^24 per
 bin.  ``masked_histogram1.launches`` and ``masked_histograms2.launches``
 count kernel launches.
 """
@@ -69,7 +70,7 @@ def _check(bins, masks, num_bins):
 def _launch(bins, masks, num_bins, dtype=torch.float32):
     """The kernel's counts as ``dtype`` (no launch for an empty volume)."""
     k = masks.shape[0]
-    out = torch.zeros((k, num_bins), dtype=torch.int32, device=bins.device)
+    out = torch.zeros((k, num_bins), dtype=torch.int64, device=bins.device)
     n = bins.shape[0]
     if not n:
         return out.to(dtype)
@@ -87,8 +88,8 @@ def _launch(bins, masks, num_bins, dtype=torch.float32):
 
 def masked_histogram1(bins, mask, num_bins=256, dtype=torch.float32):
     """K6b: [num_bins] histogram of the flat ``bins`` under one bool
-    ``mask`` (N,), as ``dtype`` (f32; int32 keeps the exact counts, which
-    a sum over shards needs)."""
+    ``mask`` (N,), as ``dtype`` (f32; int32 or int64 keep the exact
+    counts, which a sum over shards needs)."""
     masks = mask.reshape(1, -1)
     _check(bins, masks, num_bins)
     if bins.device.type == "cpu":

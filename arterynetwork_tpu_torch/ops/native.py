@@ -286,8 +286,7 @@ def hysteresis_components_ds2_packed_native(weak_packed, shape,
     bit wire format (utils/transfer.pack_mask): both masks arrive as flat
     MSB-first packed bits and the weak mask is unpacked once, natively,
     into ``out`` — skipping the host-side unpackbits -> bool -> uint8
-    copy chain (three full-volume passes that dominate the segmentation
-    stage at Speck scale on this 1-core VM).
+    copy chain (three full-volume host passes over the weak mask).
 
     ``shape`` is the (nz, ny, nx) shape of the weak mask;
     ``strong_ds_packed`` packs the 2x any-pooled strong mask of shape
@@ -419,7 +418,7 @@ def nonzero_flat_native(vol, expect: int = 0) -> np.ndarray:
     """Flat indices (int64, scan order) of nonzero bytes in a bool/uint8
     volume — the native replacement for ``np.flatnonzero`` on very sparse
     volumes: all-zero 8-byte words are skipped, so the scan runs at
-    memory-read speed (~5x the packbits route at vessel-mask densities).
+    the rate memory can be read at.
 
     ``expect`` sizes the first output buffer (0 -> 1M); if the true count
     exceeds it the scan is repeated once with the exact size.

@@ -175,6 +175,25 @@ def _scale_response(vol, sigma, alpha, beta, g, bright):
                                   alpha, beta, g, bright)
 
 
+STREAMED_CHUNK_Z = 48     # frangi_vesselness_streamed's slab rows
+
+
+def slab_plan(Z, sigmas, chunk_z, streamed=False):
+    """(halo, chunk_z, n_chunks) of a slab driver over ``Z`` rows: the
+    halo is the smoothing radius ceil(3 max sigma) plus the central
+    difference; the streamed driver grows a slab to at least its halo."""
+    halo = int(np.ceil(3.0 * max(sigmas))) + 1
+    if streamed:
+        chunk_z = max(chunk_z, halo)
+    return halo, chunk_z, -(-Z // chunk_z)
+
+
+def k1_launches(Z, sigmas, chunk_z, streamed=False):
+    """K1 launches of one slab-driver call over ``Z`` rows on a card: one
+    per slab and scale."""
+    return slab_plan(Z, sigmas, chunk_z, streamed)[2] * len(tuple(sigmas))
+
+
 def _smax_chunk(volp, start, sigma, halo, chunk_z):
     """Frobenius S-max of one chunk (the gamma pass), without caching
     the smoothed field."""
@@ -220,6 +239,13 @@ def _apply_chunk(best, volp, start, g, sigma, alpha, beta, bright,
                          alpha, beta, bright)
 
 
+# frangi_vesselness's per-voxel passes (eigenvalues, norm, tubularity:
+# ~40 temporaries of their input's size) run over z slabs of at most
+# this many voxels.  They are elementwise, so the slabs give the whole
+# volume's bits.
+SLAB_VOXELS = 1 << 26
+
+
 def frangi_vesselness(volume, sigmas=(1.0, 2.0, 3.0), alpha=0.5, beta=0.5,
                       gamma=None, bright=True, device=None):
     """Multiscale Frangi tubularity in [0, 1] of the whole volume at
@@ -227,17 +253,28 @@ def frangi_vesselness(volume, sigmas=(1.0, 2.0, 3.0), alpha=0.5, beta=0.5,
     host arrays go to the card).  With ``gamma=None`` each scale's weight
     is ``0.5 * max(S)``, S the eigenvalue norm (not the Frobenius norm
     the slab drivers take: the two round differently).  The faces
-    edge-replicate the smoothed field."""
+    edge-replicate the smoothed field.  The Hessian of a scale is held
+    whole; the passes after it run slab by slab (``SLAB_VOXELS``)."""
     from .region_grow import _as_device, _resolve_device
 
     vol = _as_device(volume, _resolve_device(volume, device), torch.float32)
     best = torch.zeros_like(vol)
+    rows = max(1, SLAB_VOXELS // max(1, vol[0].numel()))
+    slabs = [slice(z, z + rows) for z in range(0, vol.shape[0], rows)]
     for sigma in sigmas:
-        lam = _sorted_eigvals(hessian_at_scale(vol, float(sigma)))
-        s = _norm(lam)
-        g = gamma if gamma is not None else 0.5 * torch.max(s)
-        best = torch.maximum(best, _tubularity(lam, s, alpha, beta, g,
-                                               bright))
+        hs = hessian_at_scale(vol, float(sigma))
+        parts = []
+        for sl in slabs:
+            lam = _sorted_eigvals(tuple(h[sl] for h in hs))
+            parts.append((lam, _norm(lam)))
+        del hs
+        g = gamma if gamma is not None else 0.5 * torch.max(
+            torch.stack([torch.max(s) for _, s in parts]))
+        for sl, (lam, s) in zip(slabs, parts):
+            b = best[sl]
+            torch.maximum(b, _tubularity(lam, s, alpha, beta, g, bright),
+                          out=b)
+        del parts
     return best
 
 
@@ -267,8 +304,7 @@ def frangi_vesselness_chunked(volume, sigmas=(1.0, 2.0, 3.0),
     vol = _as_device(volume, device, torch.float32)
     Z = vol.shape[0]
     shape_yx = tuple(vol.shape[1:])
-    halo = int(np.ceil(3.0 * max(sigmas))) + 1
-    n_chunks = -(-Z // chunk_z)
+    halo, chunk_z, n_chunks = slab_plan(Z, sigmas, chunk_z)
     Zp = n_chunks * chunk_z
     volp = F.pad(vol, (0, 0, 0, 0, halo, Zp - Z + halo))
     del vol
@@ -499,7 +535,8 @@ def _sync(device):
 
 def frangi_vesselness_streamed(raw, sigmas=(1.0, 2.0, 3.0),
                                alpha=0.5, beta=0.5, gamma=None,
-                               bright=True, chunk_z: int = 48,
+                               bright=True,
+                               chunk_z: int = STREAMED_CHUNK_Z,
                                bits: int = 8,
                                skip_background: bool = False,
                                device="cuda"):
@@ -524,9 +561,7 @@ def frangi_vesselness_streamed(raw, sigmas=(1.0, 2.0, 3.0),
     Z = raw.shape[0]
     shape_yx = tuple(raw.shape[1:])
     sigmas = tuple(float(s) for s in sigmas)
-    halo = int(np.ceil(3.0 * max(sigmas))) + 1
-    chunk_z = max(chunk_z, halo)  # very large sigmas grow the slab
-    n_chunks = -(-Z // chunk_z)
+    halo, chunk_z, n_chunks = slab_plan(Z, sigmas, chunk_z, streamed=True)
     Zp = n_chunks * chunk_z
 
     # sub-byte packing needs an aligned x extent; degrade to the next

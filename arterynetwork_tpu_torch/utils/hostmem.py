@@ -1,15 +1,15 @@
-# Copy of arterynetwork_tpu/utils/hostmem.py, unchanged.
+# Copy of arterynetwork_tpu/utils/hostmem.py; its docstring describes the port.
 """Host allocator configuration for volume-scale numpy work.
 
 A 512x512x170 MRA stage allocates and frees several 100-200 MB arrays
 per call.  glibc malloc serves blocks above M_MMAP_THRESHOLD (128 KB
 default) with fresh anonymous mmaps and returns them to the kernel on
 free, so *every* pipeline invocation pays demand-zero page faults for
-every large temporary — on this VM first-touch runs at ~40 MB/s, turning
-a 30 ms sqrt into 3+ s.  Raising the mmap/trim thresholds keeps large
-blocks on the heap where they are reused across calls: the first
-(warm-up) run faults the pages once and steady-state runs are pure
-compute.
+every large temporary; where first-touch faults are slow, a short pass
+over a fresh array costs mostly its faults.  Raising the mmap/trim
+thresholds keeps large blocks on the heap where they are reused across
+calls: the first (warm-up) run faults the pages once and steady-state
+runs are pure compute.
 
 ``mallopt`` is callable at runtime (the env tunables are read only at
 process start), so this works regardless of how Python was launched.

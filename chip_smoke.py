@@ -109,6 +109,36 @@ Phases, each printing its own lines:
                version; halo bytes per iteration, a traced grow's idle
                share, peak device memory.
      dryrun_multichip — flagship.dryrun_multichip(4) and (8) on the card.
+     Speck scale, 880x880x640 (BASELINE.md config 5), each phase's data
+     made on the host from seeds and timed apart, each phase's tensors
+     freed before the next:
+     speck_pipeline — bench.py::bench_speck_pipeline: run_pipeline on the
+               800-branch phantom (root radius 7) with its configuration
+               (pipeline_512's with the bq3 wire): one warm-up and two
+               timed runs, 76 K1 launches each (4 scales x 19 slabs),
+               every slab decoded from 3 bits, mask recall >= 0.95,
+               finite pressures and flows, a segment; per-stage medians
+               and minima, peak device memory, the tree-recovery metrics;
+     speck_region_grow — bench.py::bench_speck_region_grow: the tube
+               phantom (radius 3), 60 iterations, 10^7 voxels, through
+               "auto" (K2 + K6b), "xla" (K6b + K7) and the frontier
+               grower (K5 + K6b), one timed run each after a warm-up: one
+               fixed point and one mask; the bins past 2^24 at iteration
+               0 and the decision-table signs they move; then
+               frangi_vesselness_chunked (sigmas 1, 2, 3; 110-row slabs):
+               24 K1 launches, within K1's bound of its twin;
+     speck_kernels — K1 on a smoothed (68, 880, 640) slab, K6b, K6a, K2,
+               K5 and K7 (sign, f32 and f64 values) on the Speck tube's
+               state after 20 iterations, K2 on each halo-padded block of
+               a 2x2 mesh of it, then n = 2^31 + 33 uint8 bins (K6b on
+               random bins and on one bin holding them all, K7 sign):
+               each against its plain version, exact but K1, with ms,
+               bounds and library-call ms;
+     speck_sharded — sharded_512's phase on the Speck raw volume, one
+               warm-up and one timed run, gates (a)-(e), the whole-volume
+               vesselness's peak memory with its per-voxel passes in one
+               slab and in slabs (bit-equal), whether the ground truth is
+               feasible.
  11. flow_determinism — each solve run twice on the card gives the
                same bits: pipeline_512's f32 solve, the 16k tree's f32
                tree and CG solves, GBMTest5's T = 8 f64 batch (the flow
@@ -138,9 +168,10 @@ Phases, each printing its own lines:
  Phases 11-14 launch none of the repository's kernels (checked).
 
 A kernel's "ms" is its own kernels' device time per call from a
-torch.profiler trace (the plain version's and the library call's: all
-their device events), "call_ms" the CUDA-event time of one call, host
-wrapper included; "bound_ms" the larger of the bytes this run's data
+torch.profiler trace that holds all of their events (else, after three
+traces, its "call_ms": "timed_by" says which; the plain version's and
+the library call's: all their device events), "call_ms" the CUDA-event
+time of one call, host wrapper included; "bound_ms" the larger of the bytes this run's data
 needs over 3.35 TB/s and the f32 operations over 67 TFLOP/s.  Each path
 is driven with every launch count set to 0 just before it and read just
 after.  Then the launches of each kernel on each path, one JSON
@@ -196,41 +227,51 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def device_ms(fn, own=False, reps=10):
+def device_ms(fn, own=False, reps=10, tries=3):
     """(device milliseconds per call of ``fn``, or None when the trace
     holds no device event; the events by name).  torch.profiler traces
     ``reps`` calls after two warm-up steps, each call synchronised; the
-    trace may drop a few events, so each name counts its mean duration
-    times its events per call, ceil(count / reps); the profiler's own
-    buffer and step annotations do not count.  ``own`` keeps only this
-    repository's kernels (csrc/*.cu, in an anonymous namespace), not the
-    wrapper's fills and casts."""
+    profiler's own buffer and step annotations do not count.  ``own``
+    keeps only this repository's kernels (csrc/*.cu, in an anonymous
+    namespace), not the wrapper's fills and casts, and takes a trace
+    that holds each of them ``reps`` times (up to ``tries`` traces, else
+    None: a trace that drops events also misreports the durations of
+    those it keeps).  Otherwise the trace may drop a few events, and
+    each name counts its mean duration times its events per call,
+    ceil(count / reps)."""
     import math
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    events = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=2, active=reps),
-                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
-        for _ in range(2 + reps):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    by_name = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA \
-                and e.name != "Activity Buffer Request" \
-                and not e.name.startswith("ProfilerStep") \
-                and (not own or ("anonymous namespace)::" in e.name
-                                 and "at::" not in e.name)):
-            by_name.setdefault(e.name, []).append(e.device_time_total)
-    us = sum(statistics.mean(d) * math.ceil(len(d) / reps)
-             for d in by_name.values())
-    return (us / 1e3 if us > 0 else None), [
-        f"{len(d)} x {k[:50]}" for k, d in sorted(by_name.items())]
+    for _ in range(tries if own else 1):
+        events = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=reps),
+                     on_trace_ready=lambda p: events.extend(p.events())) \
+                as prof:
+            for _ in range(2 + reps):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA \
+                    and e.name != "Activity Buffer Request" \
+                    and not e.name.startswith("ProfilerStep") \
+                    and (not own or ("anonymous namespace)::" in e.name
+                                     and "at::" not in e.name)):
+                by_name.setdefault(e.name, []).append(e.device_time_total)
+        names = [f"{len(d)} x {k[:50]}" for k, d in sorted(by_name.items())]
+        if not own:
+            us = sum(statistics.mean(d) * math.ceil(len(d) / reps)
+                     for d in by_name.values())
+            return (us / 1e3 if us > 0 else None), names
+        if by_name and all(len(d) == reps for d in by_name.values()):
+            return sum(map(statistics.mean, by_name.values())) / 1e3, names
+    return None, names
 
 
 def _ms(t):
@@ -388,8 +429,74 @@ def k1_hard_cases(dev):
     return worst
 
 
-def phase_kernel(raw):
+def _k1_compare(phase, sm, g, sigma, bright, z_lo, zr, label):
+    """K1 and its twin on one smoothed field: (max |d|, measure() of each)."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops.vesselness_fused import (
+        frangi_response_max_, frangi_response_plain_)
+
+    dev = sm.device
+    ref = torch.zeros((zr,) + tuple(sm.shape[1:]), device=dev)
+    out = torch.zeros_like(ref)
+    frangi_response_plain_(ref, 0, sm, z_lo, zr, sigma, g, bright=bright)
+    frangi_response_max_(out, 0, sm, z_lo, zr, sigma, g, bright=bright)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    m_k = measure(lambda: frangi_response_max_(
+        out, 0, sm, z_lo, zr, sigma, g, bright=bright), own=True)
+    m_p = measure(lambda: frangi_response_plain_(
+        ref, 0, sm, z_lo, zr, sigma, g, bright=bright))
+    log(phase, f"{label}: max|d| {err:.3e}, kernel {_ms(m_k[0])} ms"
+        f" on the device ({m_k[1]:.4f} ms per call), twin "
+        f"{_ms(m_p[0])} ms ({m_p[1]:.4f} ms per call); max response "
+        f"{float(ref.max()):.4f}")
+    if not err <= K1_TOL:
+        raise SystemExit(f"K1 disagrees with its twin: {err} > {K1_TOL}")
+    return err, m_k, m_p
+
+
+def _k1_slab(phase, raw):
+    """K1 against its twin on a smoothed slab of ``raw`` as the streamed
+    driver smooths it (48 rows and a halo of 10 each side), per scale of
+    the pipeline: (max |d|, the kernel's record over the four scales,
+    the slab on the card)."""
     import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.ops.vesselness import (_frobenius_max,
+                                                        _smooth)
+
+    halo, chunk_z = 10, 48        # the pipelines' chunk geometry
+    slab = torch.from_numpy(np.ascontiguousarray(
+        raw[200:200 + chunk_z + 2 * halo])).cuda()
+    max_err, ms, plain_ms = 0.0, [], []
+    for sigma in (0.75, 1.0, 2.0, 3.0):
+        sm = _smooth(slab, sigma)
+        g = (_frobenius_max(sm, sigma, halo, chunk_z) * 0.5).reshape(())
+        err, m_k, m_p = _k1_compare(phase, sm, g, sigma, True, halo,
+                                    chunk_z, f"sigma {sigma} bright "
+                                    f"{tuple(sm.shape)}")
+        max_err = max(max_err, err)
+        ms.append(m_k)
+        plain_ms.append(m_p)
+    # per launch: the rows of sm it reads (one beyond each end of the
+    # chunk), best read and written
+    zs, plane = slab.shape[0], slab.shape[1] * slab.shape[2]
+    rows = min(halo + chunk_z + 1, zs) - max(halo - 1, 0)
+
+    def mean(ts):                  # over the four scales
+        return tuple(None if None in c else statistics.mean(c)
+                     for c in list(zip(*ts))[:2])
+
+    rec = timing(mean(ms), mean(plain_ms), 4 * plane * (rows + 2 * chunk_z),
+                 K1_OPS_PER_VOXEL * plane * chunk_z)
+    log(phase, f"K1 on {tuple(slab.shape)}: bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}): {rec['bound_ms'] / rec['ms']:.1%} of it")
+    return max_err, rec, slab
+
+
+def phase_kernel(raw):
     import torch
 
     from arterynetwork_tpu_torch.ops.vesselness import (_frobenius_max,
@@ -398,48 +505,18 @@ def phase_kernel(raw):
         frangi_response_fused, frangi_response_max_, frangi_response_plain_)
 
     dev = torch.device("cuda")
-    halo, chunk_z = 10, 48        # the pipeline_512 chunk geometry
-    slab = torch.from_numpy(np.ascontiguousarray(
-        raw[200:200 + chunk_z + 2 * halo])).to(dev)
-    max_err, ms, plain_ms = 0.0, [], []
+    halo, chunk_z = 10, 48
+    max_err, rec, slab = _k1_slab("kernel", raw)
 
-    def compare(sm, g, sigma, bright, z_lo, zr, label):
-        ref = torch.zeros((zr,) + tuple(sm.shape[1:]), device=dev)
-        out = torch.zeros_like(ref)
-        frangi_response_plain_(ref, 0, sm, z_lo, zr, sigma, g,
-                               bright=bright)
-        frangi_response_max_(out, 0, sm, z_lo, zr, sigma, g, bright=bright)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        m_k = measure(lambda: frangi_response_max_(
-            out, 0, sm, z_lo, zr, sigma, g, bright=bright), own=True)
-        m_p = measure(lambda: frangi_response_plain_(
-            ref, 0, sm, z_lo, zr, sigma, g, bright=bright))
-        log("kernel", f"{label}: max|d| {err:.3e}, kernel {_ms(m_k[0])} ms"
-            f" on the device ({m_k[1]:.4f} ms per call), twin "
-            f"{_ms(m_p[0])} ms ({m_p[1]:.4f} ms per call); max response "
-            f"{float(ref.max()):.4f}")
-        if not err <= K1_TOL:
-            raise SystemExit(f"K1 disagrees with its twin: {err} > {K1_TOL}")
-        return err, m_k, m_p
-
-    for sigma in (0.75, 1.0, 2.0, 3.0):
-        sm = _smooth(slab, sigma)
-        g = (_frobenius_max(sm, sigma, halo, chunk_z) * 0.5).reshape(())
-        err, m_k, m_p = compare(sm, g, sigma, True, halo, chunk_z,
-                                f"sigma {sigma} bright {tuple(sm.shape)}")
-        max_err = max(max_err, err)
-        ms.append(m_k)
-        plain_ms.append(m_p)
     sm = _smooth(slab, 2.0)
     g = (_frobenius_max(sm, 2.0, halo, chunk_z) * 0.5).reshape(())
-    err, _, _ = compare(sm, g, 2.0, False, halo, chunk_z,
-                        f"sigma 2.0 dark {tuple(sm.shape)}")
+    err, _, _ = _k1_compare("kernel", sm, g, 2.0, False, halo, chunk_z,
+                            f"sigma 2.0 dark {tuple(sm.shape)}")
     max_err = max(max_err, err)
     rag = _smooth(slab[:40, :509, :167].contiguous(), 1.0)
     g = (_frobenius_max(rag, 1.0, 5, 30) * 0.5).reshape(())
-    err, _, _ = compare(rag, g, 1.0, True, 5, 30,
-                        f"sigma 1.0 ragged {tuple(rag.shape)}")
+    err, _, _ = _k1_compare("kernel", rag, g, 1.0, True, 5, 30,
+                            f"sigma 1.0 ragged {tuple(rag.shape)}")
     max_err = max(max_err, err)
     max_err = max(max_err, k1_hard_cases(dev))
     # the functional form, frangi_response_fused (the JAX package's entry):
@@ -467,18 +544,6 @@ def phase_kernel(raw):
     if fused_launches != 2:
         raise SystemExit(f"frangi_response_fused: {fused_launches} K1 "
                          f"launches for 2 calls")
-    # per launch at the main path's shape: the rows of sm it reads (one
-    # beyond each end of the chunk), best read and written
-    zs, plane = slab.shape[0], slab.shape[1] * slab.shape[2]
-    rows = min(halo + chunk_z + 1, zs) - max(halo - 1, 0)
-    def mean(ts):                  # over the four scales
-        return tuple(None if None in c else statistics.mean(c)
-                     for c in list(zip(*ts))[:2])
-
-    rec = timing(mean(ms), mean(plain_ms), 4 * plane * (rows + 2 * chunk_z),
-                 K1_OPS_PER_VOXEL * plane * chunk_z)
-    log("kernel", f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
-        f"{rec['bound_ms'] / rec['ms']:.1%} of it")
     return {"max_abs_err": max_err, **rec}, fused_launches
 
 
@@ -516,52 +581,71 @@ def phase_small():
     log("small", msg)
 
 
-def phase_pipeline(phantom, raw):
-    import numpy as np
+def phase_pipeline(phantom, raw, phase="pipeline_512", cfg=None, timed=3):
+    """run_pipeline on ``raw`` with ``cfg`` (pipeline_512's by default):
+    one warm-up and ``timed`` timed runs, each with the K1 launches the
+    streamed driver's slabs give, finite pressures and flows, mask recall
+    >= 0.95.  Returns (K1 launches of the last run, its result, the
+    timed runs' {"totals", "timings", "peaks_mib", "recall"})."""
     import torch
 
+    from arterynetwork_tpu_torch.ops import vesselness
     from arterynetwork_tpu_torch.ops.vesselness_fused import \
         frangi_response_max_
     from arterynetwork_tpu_torch.pipeline import run_pipeline
 
-    cfg = bench_config()
-    totals, launches = [], []
-    for i in range(4):            # run 0 is the warm-up
+    cfg = cfg or bench_config()
+    want = vesselness.k1_launches(raw.shape[0], cfg.vesselness.sigmas,
+                                  vesselness.STREAMED_CHUNK_Z,
+                                  streamed=True)
+    runs = {"totals": [], "timings": [], "peaks_mib": []}
+    launches = []
+    for i in range(timed + 1):            # run 0 is the warm-up
         frangi_response_max_.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         result = run_pipeline(raw_volume=raw, config=cfg, device="cuda")
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         n = frangi_response_max_.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
         launches.append(n)
         stages = ", ".join(f"{k} {v:.4f}" for k, v in
                            result["timings"].items())
-        log("pipeline_512", f"run {i}{' (warm-up)' if i == 0 else ''}: "
-            f"total {total:.4f} s; K1 launches {n}; stages (s): {stages}")
+        log(phase, f"run {i}{' (warm-up)' if i == 0 else ''}: "
+            f"total {total:.4f} s; K1 launches {n}; peak device memory "
+            f"{peak:.0f} MiB; stages (s): {stages}")
         if i:
-            totals.append(total)
+            runs["totals"].append(total)
+            runs["timings"].append(dict(result["timings"]))
+            runs["peaks_mib"].append(peak)
     sol = result["solution"]
     mask = result["mask"]
     recall = float(mask[phantom["mask"]].astype(bool).mean())
     finite = bool(torch.isfinite(sol.pressure).all()
                   and torch.isfinite(sol.flow).all())
-    log("pipeline_512", f"median total {statistics.median(totals):.4f} s "
-        f"(runs {', '.join(f'{t:.4f}' for t in totals)}); mask voxels "
-        f"{int(mask.sum())}; segments {len(result['segments'])}; flow edges "
-        f"{result['network'].num_edges}; mask recall {recall:.4f}; "
-        f"residual {float(sol.residual_norm):.3e} after {sol.iterations} "
-        f"Newton iterations; pressures/flows finite {finite}; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    if any(n != 44 for n in launches):
-        raise SystemExit(f"K1 launches per run {launches}, expected 44")
+    runs["recall"] = recall
+    log(phase, f"median total {statistics.median(runs['totals']):.4f} s "
+        f"(runs {', '.join(f'{t:.4f}' for t in runs['totals'])}); mask "
+        f"voxels {int(mask.sum())}; segments {len(result['segments'])}; "
+        f"flow edges {result['network'].num_edges}; mask recall "
+        f"{recall:.4f}; residual {float(sol.residual_norm):.3e} after "
+        f"{sol.iterations} Newton iterations; pressures/flows finite "
+        f"{finite}; peak device memory {max(runs['peaks_mib']):.0f} MiB")
+    if any(n != want for n in launches):
+        raise SystemExit(f"{phase}: K1 launches per run {launches}, "
+                         f"expected {want}")
     if not finite:
-        raise SystemExit("non-finite pressures or flows")
+        raise SystemExit(f"{phase}: non-finite pressures or flows")
     if not recall >= RECALL_MIN:
-        raise SystemExit(f"mask recall {recall} < {RECALL_MIN}")
+        raise SystemExit(f"{phase}: mask recall {recall} < {RECALL_MIN}")
     if sol.pressure.shape[0] != result["network"].num_nodes:
-        raise SystemExit("pressure vector does not match the network")
-    return launches[-1], result
+        raise SystemExit(f"{phase}: pressure vector does not match the "
+                         f"network")
+    if not result["segments"]:
+        raise SystemExit(f"{phase}: no segment")
+    return launches[-1], result, runs
 
 
 def _ops(name):
@@ -754,12 +838,7 @@ def _window_cases(fused, state, same):
     unaligned view, and each halo-padded block of a 2x2 mesh at the
     path's shape, whose interiors reassemble the whole volume's sweep and
     whose deltas sum to its."""
-    import torch
     import torch.nn.functional as F
-
-    from arterynetwork_tpu_torch.parallel.halo import (make_volume_mesh,
-                                                       pad_halos,
-                                                       shard_volume)
 
     n = 0
     full = ((0, 17), (0, 17), (0, 170))
@@ -793,24 +872,168 @@ def _window_cases(fused, state, same):
          _in_window(fused.fused_sweep_counts(*view, window=win), win),
          _in_window(fused.fused_sweep_plain(*view, window=win), win))
     n += 2
-    seg, bins, words = state(RG_SHAPE)
+    return n + _mesh_windows(fused, *state(RG_SHAPE), same)
+
+
+def _mesh_windows(fused, seg, bins, words, same):
+    """K2 on each halo-padded block of a 2x2 mesh over its interior
+    window against its plain version (the sharded grower's calls), the
+    interiors reassembled into the whole volume's sweep and the deltas
+    summed to its; returns the number of blocks."""
+    import torch
+
+    from arterynetwork_tpu_torch.parallel.halo import (make_volume_mesh,
+                                                       pad_halos,
+                                                       shard_volume)
+
     whole = fused.fused_sweep_plain(seg, bins, words)
     mesh = make_volume_mesh([seg.device] * 4)
     seg_p = pad_halos(shard_volume(seg, mesh), 1)
     bins_p = pad_halos(shard_volume(bins, mesh), 1)
     dh = torch.zeros_like(whole[1])
+    n = 0
     for idx in seg_p.source.indices():
         args = (seg_p.blocks[idx], bins_p.blocks[idx], words)
         win = seg_p.window(idx)
         out = fused.fused_sweep_counts(*args, window=win)
-        same(f"K2 on the padded block {idx} of a 2x2 mesh",
-             _in_window(out, win),
+        same(f"K2 on the padded block {idx} {tuple(args[0].shape)} of a "
+             f"2x2 mesh", _in_window(out, win),
              _in_window(fused.fused_sweep_plain(*args, window=win), win))
         seg_p.blocks[idx] = out[0]
         dh += out[1]
         n += 1
     same("K2's 2x2 blocks reassembled", (seg_p.crop().gather(), dh), whole)
     return n
+
+
+def _grow_state(phase, vol, seed, max_segment_size):
+    """The region-growing kernels' inputs at the path's shapes: the tube
+    phantom's bins and its state after 20 full-grid iterations, the
+    decision table of that state, its boundary and active tiles."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops.region_grow import (
+        _bin_ids, _decision_table, _gaussian_kernel, _quantize, region_grow)
+    from arterynetwork_tpu_torch.ops.stencil import dilate26
+
+    hk, fused = _ops("histogram_kernels"), _ops("region_grow_fused")
+    front = _ops("region_grow_frontier")
+    data = torch.from_numpy(vol).cuda()
+    res = region_grow(data, torch.from_numpy(seed).cuda(), backend="xla",
+                      max_segment_size=max_segment_size, iter_max=20)
+    seg = res.segmented_map
+    idx, values = _quantize(data, 256)
+    del data
+    bins = _bin_ids(idx, 256).contiguous()
+    del idx
+    flat = bins.reshape(-1)
+    masks = torch.stack([seg.reshape(-1), ~seg.reshape(-1)])
+    K = _gaussian_kernel(values, 2.25, torch.float32)
+    hist_all = hk.masked_histogram1(flat, torch.ones_like(masks[0]))
+    inner = hk.masked_histogram1(flat, masks[0])
+    table = _decision_table(K, inner, hist_all - inner)     # f32[256]
+    st = {"seg": seg, "bins": bins, "flat": flat, "masks": masks,
+          "table": table, "words": fused.pack_sign_words(table),
+          "seg8": seg.to(torch.uint8).contiguous(), "tile": (8, 16),
+          "bnd": dilate26(seg) & dilate26(~seg)}
+    active = front._per_tile(st["bnd"], st["tile"]) > 0
+    st["ids"] = front._compact(active, 256)
+    st["nact"] = torch.clamp(active.sum(), max=256).to(
+        torch.int32).reshape(1)
+    log(phase, f"state after {int(res.iterations)} iterations: "
+        f"{int(res.segmented_count)} segmented voxels; {int(st['nact'])} "
+        f"of {active.numel()} tiles active; decision table "
+        f"{int((table >= 0).sum())} of 256 bins >= 0")
+    return st
+
+
+def _state_cases(st):
+    """{name: (kernel, plain version, bytes it must move, library call)}
+    of K6b, K6a, K2, K5 and K7 (sign and f32 values) on a ``_grow_state``;
+    K5 sweeps a copy of the state."""
+    import torch
+
+    hk, fused = _ops("histogram_kernels"), _ops("region_grow_fused")
+    front, lk = _ops("region_grow_frontier"), _ops("lookup_kernels")
+    flat, masks, bins = st["flat"], st["masks"], st["bins"]
+    seg8, words, table = st["seg8"], st["words"], st["table"]
+    n = flat.numel()
+    w = masks.float()               # the library calls' weights
+    front_a, front_b = seg8.clone(), seg8.clone()
+    n_seg, n_bnd = int(masks[0].sum()), int(st["bnd"].sum())
+
+    def frontier(fn, s):
+        return lambda: (s, *fn(s, bins, st["ids"], st["nact"], words,
+                               st["tile"]))
+
+    return {
+        "masked_histogram1": (
+            lambda: (hk.masked_histogram1(flat, masks[0]),),
+            lambda: (hk.masked_histograms_plain(flat, masks[:1])[0],),
+            n + n_seg + 256 * 4,
+            lambda: (torch.bincount(flat, weights=w[0], minlength=256),)),
+        "masked_histograms2": (
+            lambda: (hk.masked_histograms2(flat, masks),),
+            lambda: (hk.masked_histograms_plain(flat, masks),),
+            3 * n + 2 * 256 * 4,
+            lambda: (torch.bincount(flat, weights=w[0], minlength=256),
+                     torch.bincount(flat, weights=w[1], minlength=256))),
+        "region_grow_sweep": (
+            lambda: fused.fused_sweep_counts(seg8, bins, words),
+            lambda: fused.fused_sweep_plain(seg8, bins, words),
+            2 * n + n_bnd + 2 * 256 * 4, None),
+        "region_grow_frontier": (
+            frontier(front.frontier_step, front_a),
+            frontier(front.frontier_step_plain, front_b),
+            _frontier_bytes(st["ids"].tolist(), int(st["nact"]),
+                            seg8.shape, st["tile"], n_bnd), None),
+        "table_lookup": (
+            lambda: (lk.table_lookup(bins, table),),
+            lambda: (lk.table_lookup_plain(bins, table),),
+            n + 4 * n + 256 * 4, lambda: (table[bins.long()],)),
+        "sign_lookup": (
+            lambda: (lk.sign_lookup(bins, table),),
+            lambda: (lk.sign_lookup_plain(bins, table),),
+            2 * n + 256 * 4, lambda: (table[bins.long()] >= 0,)),
+    }
+
+
+def _run_cases(phase, cases):
+    """Each case's kernel against its plain version on the card (exact),
+    with device and call times of both and of the library call, and the
+    kernel's bound: {name: record}."""
+    import torch
+
+    rec = {}
+    for name, (kernel, plain, nbytes, library) in cases.items():
+        if "banded" in name:           # compare against the plain sweep
+            with plain_kernels():
+                ref = plain()
+        else:
+            ref = plain()
+        out = kernel()
+        torch.cuda.synchronize()
+        err = _max_err(out, ref)
+        del out, ref
+        m_k = measure(kernel, own=True)
+        with plain_kernels():
+            m_p = measure(plain)
+        m_l = library and measure(library)
+        r = {"max_abs_err": err, **timing(m_k, m_p, nbytes, 0, m_l)}
+        lib = "none" if library is None else (
+            f"{r['library_ms']:.4f} ms ({r['library_call_ms']:.4f} per call)")
+        log(phase, f"{name}: max|d| {err}; {r['timed_by']}"
+            f" ms: kernel {r['ms']:.4f} ({r['call_ms']:.4f} per call), "
+            f"plain {r['plain_ms']:.4f} ({r['plain_call_ms']:.4f} per call),"
+            f" library call {lib}; bound {r['bound_ms']:.4f} ms ({nbytes} "
+            f"bytes): {r['bound_ms'] / r['ms']:.1%} of the kernel; device "
+            f"events in 10 calls: kernel {'; '.join(m_k[2])}; plain "
+            f"{'; '.join(m_p[2])}; library {'; '.join(m_l[2]) if m_l else ''}")
+        if err != 0:
+            raise SystemExit(f"{phase}: {name} disagrees with its plain "
+                             f"version: max|d| {err}")
+        rec[name] = r
+    return rec
 
 
 def phase_region_grow_kernels(vol, seed):
@@ -823,55 +1046,16 @@ def phase_region_grow_kernels(vol, seed):
     import torch
     import torch.nn.functional as F
 
-    from arterynetwork_tpu_torch.ops.region_grow import (
-        _bin_ids, _decision_table, _gaussian_kernel, _quantize, region_grow)
-    from arterynetwork_tpu_torch.ops.stencil import dilate26
-
-    hk, fused = _ops("histogram_kernels"), _ops("region_grow_fused")
-    front, lk = _ops("region_grow_frontier"), _ops("lookup_kernels")
-    dev = torch.device("cuda")
-    data = torch.from_numpy(vol).to(dev)
-    res = region_grow(data, torch.from_numpy(seed).to(dev), backend="xla",
-                      max_segment_size=10 ** 6, iter_max=20)
-    seg = res.segmented_map
-    idx, values = _quantize(data, 256)
-    bins = _bin_ids(idx, 256).contiguous()
-    flat = bins.reshape(-1)
-    n = flat.numel()
-    masks = torch.stack([seg.reshape(-1), ~seg.reshape(-1)])
-    K = _gaussian_kernel(values, 2.25, torch.float32)
-    hist_all = hk.masked_histogram1(flat, torch.ones_like(masks[0]))
-    inner = hk.masked_histogram1(flat, masks[0])
-    table = _decision_table(K, inner, hist_all - inner)     # f32[256]
-    words = fused.pack_sign_words(table)
-    seg8 = seg.to(torch.uint8).contiguous()
+    P = "region_grow_kernels"
+    fused, front = _ops("region_grow_fused"), _ops("region_grow_frontier")
+    st = _grow_state(P, vol, seed, 10 ** 6)
+    cases = _state_cases(st)
+    seg8, bins, words = st["seg8"], st["bins"], st["words"]
     Z, Y, X = seg8.shape            # pad X to 256 lanes, Y to whole
     pad = (0, 256 - X, 0, max(-(-Y // 128), 2) * 128 - Y)    # 128-bands
     seg_p, bins_p = F.pad(seg8, pad), F.pad(bins, pad)
     valid = tuple(seg8.shape[1:])
-    tile = (8, 16)
-    bnd = dilate26(seg) & dilate26(~seg)
-    active = front._per_tile(bnd, tile) > 0
-    ids = front._compact(active, 256)
-    nact = torch.clamp(active.sum(), max=256).to(torch.int32).reshape(1)
-    log("region_grow_kernels", f"state after {int(res.iterations)} "
-        f"iterations: {int(res.segmented_count)} segmented voxels; "
-        f"{int(nact)} of {active.numel()} tiles active; decision table "
-        f"{int((table >= 0).sum())} of 256 bins >= 0")
-    w = masks.float()               # the library calls' weights
-
-    def k6b():
-        return (hk.masked_histogram1(flat, masks[0]),)
-
-    def k6b_plain():
-        return (hk.masked_histograms_plain(flat, masks[:1])[0],)
-
-    def frontier(fn, s):
-        return lambda: (s, *fn(s, bins, ids, nact, words, tile))
-
-    front_a, front_b = seg8.clone(), seg8.clone()
-    n_seg, n_bnd = int(masks[0].sum()), int(bnd.sum())
-    sweep_bytes = 2 * n + n_bnd + 2 * 256 * 4
+    sweep_bytes = cases["region_grow_sweep"][2]
     # a block of sharded_512's grower: 256 x 256 own rows of the state
     # around the tube with a one-voxel halo on each side, swept over its
     # window (the kernel reads the block, writes and counts the window)
@@ -879,24 +1063,10 @@ def phase_region_grow_kernels(vol, seed):
     seg_b, bins_b = seg8[blk].contiguous(), bins[blk].contiguous()
     win = ((1, 257), (1, 257), (0, X))
     n_b = seg_b.numel()
-    n_bnd_win = int(bnd[128:384, 128:384].sum())
-    log("region_grow_kernels", f"windowed K2 block {tuple(seg_b.shape)}, "
-        f"window {win}: {n_bnd_win} boundary voxels in the window")
-    # name: (kernel, plain version, bytes it must move, library call)
-    cases = {
-        "masked_histogram1": (
-            k6b, k6b_plain, n + n_seg + 256 * 4,
-            lambda: (torch.bincount(flat, weights=w[0], minlength=256),)),
-        "masked_histograms2": (
-            lambda: (hk.masked_histograms2(flat, masks),),
-            lambda: (hk.masked_histograms_plain(flat, masks),),
-            3 * n + 2 * 256 * 4,
-            lambda: (torch.bincount(flat, weights=w[0], minlength=256),
-                     torch.bincount(flat, weights=w[1], minlength=256))),
-        "region_grow_sweep": (
-            lambda: fused.fused_sweep_counts(seg8, bins, words),
-            lambda: fused.fused_sweep_plain(seg8, bins, words),
-            sweep_bytes, None),
+    n_bnd_win = int(st["bnd"][128:384, 128:384].sum())
+    log(P, f"windowed K2 block {tuple(seg_b.shape)}, window {win}: "
+        f"{n_bnd_win} boundary voxels in the window")
+    cases.update({
         "region_grow_sweep window": (
             lambda: _in_window(fused.fused_sweep_counts(
                 seg_b, bins_b, words, window=win), win),
@@ -911,59 +1081,19 @@ def phase_region_grow_kernels(vol, seed):
             lambda: fused.fused_sweep_banded_dma(seg_p, bins_p, words,
                                                  valid),
             lambda: fused.fused_sweep(seg_p, bins_p, words, valid),
-            sweep_bytes, None),
-        "region_grow_frontier": (
-            frontier(front.frontier_step, front_a),
-            frontier(front.frontier_step_plain, front_b),
-            _frontier_bytes(ids.tolist(), int(nact), seg8.shape, tile,
-                            n_bnd), None),
-        "table_lookup": (
-            lambda: (lk.table_lookup(bins, table),),
-            lambda: (lk.table_lookup_plain(bins, table),),
-            n + 4 * n + 256 * 4, lambda: (table[bins.long()],)),
-        "sign_lookup": (
-            lambda: (lk.sign_lookup(bins, table),),
-            lambda: (lk.sign_lookup_plain(bins, table),),
-            2 * n + 256 * 4, lambda: (table[bins.long()] >= 0,)),
-    }
-    rec = {}
-    for name, (kernel, plain, nbytes, library) in cases.items():
-        if "banded" in name:           # compare against the plain sweep
-            with plain_kernels():
-                ref = plain()
-        else:
-            ref = plain()
-        out = kernel()
-        torch.cuda.synchronize()
-        err = _max_err(out, ref)
-        m_k = measure(kernel, own=True)
-        with plain_kernels():
-            m_p = measure(plain)
-        m_l = library and measure(library)
-        r = {"max_abs_err": err, **timing(m_k, m_p, nbytes, 0, m_l)}
-        lib = "none" if library is None else (
-            f"{r['library_ms']:.4f} ms ({r['library_call_ms']:.4f} per call)")
-        log("region_grow_kernels", f"{name}: max|d| {err}; {r['timed_by']}"
-            f" ms: kernel {r['ms']:.4f} ({r['call_ms']:.4f} per call), "
-            f"plain {r['plain_ms']:.4f} ({r['plain_call_ms']:.4f} per call),"
-            f" library call {lib}; bound {r['bound_ms']:.4f} ms ({nbytes} "
-            f"bytes): {r['bound_ms'] / r['ms']:.1%} of the kernel; device "
-            f"events in 10 calls: kernel {'; '.join(m_k[2])}; plain "
-            f"{'; '.join(m_p[2])}; library {'; '.join(m_l[2]) if m_l else ''}")
-        if err != 0:
-            raise SystemExit(f"{name} disagrees with its plain version: "
-                             f"max|d| {err}")
-        rec[name] = r
+            sweep_bytes, None)})
+    rec = _run_cases(P, cases)
     # K5's floor: both kernels launched, no tile active
-    none = torch.zeros(1, dtype=torch.int32, device=dev)
-    m0 = measure(lambda: front.frontier_step(front_a, bins, ids, none, words,
-                                             tile), own=True)
+    none = torch.zeros(1, dtype=torch.int32, device=seg8.device)
+    seg0 = seg8.clone()
+    m0 = measure(lambda: front.frontier_step(seg0, bins, st["ids"], none,
+                                             words, st["tile"]), own=True)
     r = rec["region_grow_frontier"]
     r["nact0_ms"], r["nact0_call_ms"] = m0[0], m0[1]
-    log("region_grow_kernels", f"region_grow_frontier fixed cost (nact = "
-        f"0, both kernels launched): {_ms(m0[0])} ms on the device "
-        f"({m0[1]:.4f} per call), against {r['ms']:.4f} ms at {int(nact)} "
-        f"tiles; device events in 10 calls: {'; '.join(m0[2])}")
+    log(P, f"region_grow_frontier fixed cost (nact = 0, both kernels "
+        f"launched): {_ms(m0[0])} ms on the device ({m0[1]:.4f} per call),"
+        f" against {r['ms']:.4f} ms at {int(st['nact'])} tiles; device "
+        f"events in 10 calls: {'; '.join(m0[2])}")
     return rec
 
 
@@ -1841,10 +1971,11 @@ def _rel_diff(a, b):
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
 
 
-def phase_sharded_512(raw):
-    """mini_pipeline_sharded on the pipeline_512 raw volume over a 2x2
-    mesh of cuda:0 slots (the four blocks run one after another on the
-    one card), at its defaults: one warm-up and three timed runs with
+def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
+    """mini_pipeline_sharded on ``raw`` (the pipeline_512 raw volume for
+    sharded_512, the Speck one for speck_sharded) over a 2x2 mesh of
+    cuda:0 slots (the four blocks run one after another on the one
+    card), at its defaults: one warm-up and ``timed`` timed runs with
     per-stage times; then the gates: (a) the vesselness bit-equal to
     frangi_vesselness of the whole volume, (b) mask and skeleton equal to
     the single-device composition on the card (tests/test_parallel.py's),
@@ -1860,7 +1991,9 @@ def phase_sharded_512(raw):
     Where the ground truth (option 2) is infeasible on the skeleton's
     network, the pipeline returns no pressures (the JAX package's does
     the same), and (d) takes the boundary pressures of the
-    terminating-pressure model that run_pipeline falls back to."""
+    terminating-pressure model that run_pipeline falls back to.
+    ``extras`` (sharded_512) adds gate (f), the traced grows and the
+    network's file."""
     import dataclasses
 
     import numpy as np
@@ -1870,9 +2003,7 @@ def phase_sharded_512(raw):
                                               create_ground_truth)
     from arterynetwork_tpu_torch.flow.solvers import \
         solve_pressure_newton_batch
-    from arterynetwork_tpu_torch.ops.region_grow import (_bin_ids,
-                                                         _quantize,
-                                                         region_grow)
+    from arterynetwork_tpu_torch.ops.region_grow import region_grow
     from arterynetwork_tpu_torch.ops.thinning import skeletonize
     from arterynetwork_tpu_torch.ops.vesselness import frangi_vesselness
     from arterynetwork_tpu_torch.parallel import sharded
@@ -1888,7 +2019,7 @@ def phase_sharded_512(raw):
     kw = {"sigmas": SHARDED_SIGMAS, "max_waves": SHARDED_WAVES,
           "region_grow_iters": SHARDED_ITERS, "n_timesteps": SHARDED_T}
     totals, stage_runs, peaks = [], [], []
-    for i in range(4):            # run 0 is the warm-up
+    for i in range(timed + 1):    # run 0 is the warm-up
         reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1900,7 +2031,7 @@ def phase_sharded_512(raw):
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         stages = ", ".join(f"{k} {v:.4f}" for k, v in
                            res["timings"].items())
-        log("sharded_512", f"run {i}{' (warm-up)' if i == 0 else ''}: "
+        log(phase, f"run {i}{' (warm-up)' if i == 0 else ''}: "
             f"total {total:.4f} s; launches {counts}; stages (s): "
             f"{stages}; peak device memory {peak:.0f} MiB")
         if i:
@@ -1915,10 +2046,13 @@ def phase_sharded_512(raw):
     # the single-device composition on the card, each stage timed once
     vol = torch.from_numpy(np.ascontiguousarray(raw, np.float32)).to(dev)
     single = {}
+    peaks_v, one = _vesselness_peaks(vol)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     v1 = frangi_vesselness(vol, sigmas=SHARDED_SIGMAS)
     torch.cuda.synchronize()
     single["vesselness"] = time.perf_counter() - t0
+    peaks_v["slabs"] = torch.cuda.max_memory_allocated() / 2 ** 20
     vmin, vmax = torch.min(v1), torch.max(v1)
     seeds = v1 > vmin + 0.5 * (vmax - vmin)
     t0 = time.perf_counter()
@@ -1930,7 +2064,12 @@ def phase_sharded_512(raw):
     skel1 = skeletonize(mask1, max_waves=SHARDED_WAVES)
     torch.cuda.synchronize()
     single["thinning"] = time.perf_counter() - t0
-    gate_a = bool(np.array_equal(res["vesselness"], v1.cpu().numpy()))
+    v1_host = v1.cpu().numpy()
+    if one is not None:
+        peaks_v["one_slab_bit_equal"] = bool(np.array_equal(one, v1_host))
+    gate_a = (bool(np.array_equal(res["vesselness"], v1_host))
+              and peaks_v.get("one_slab_bit_equal", True))
+    del v1_host, one
     gate_b = (bool(np.array_equal(res["mask"], mask1.cpu().numpy()))
               and bool(np.array_equal(res["skeleton"],
                                       skel1.cpu().numpy()))
@@ -1974,31 +2113,122 @@ def phase_sharded_512(raw):
         rows = dp_sol.pressure.cpu().numpy()
         bit_equal = (one.tobytes() == two.tobytes() == rows.tobytes())
         resid = float(dp_sol.residual_norm.max())
-        # the network and its boundary for a solve elsewhere (the JAX
-        # package's against the port's, on a CPU)
-        os.makedirs("build", exist_ok=True)
-        np.savez("build/sharded_512_network.npz", boundary_pressure=bp,
-                 **{f.name: getattr(net, f.name) for f in
-                    dataclasses.fields(net)
-                    if isinstance(getattr(net, f.name), np.ndarray)})
+        if extras:
+            # the network and its boundary for a solve elsewhere (the
+            # JAX package's against the port's, on a CPU)
+            os.makedirs("build", exist_ok=True)
+            np.savez("build/sharded_512_network.npz", boundary_pressure=bp,
+                     **{f.name: getattr(net, f.name) for f in
+                        dataclasses.fields(net)
+                        if isinstance(getattr(net, f.name), np.ndarray)})
     gate_d = bool(bit_equal) and bool(np.isfinite(rows).all())
     gate_e = (counts["region_grow_sweep"] == 4 * sweeps
               and counts["masked_histogram1"] == 8)
 
-    # halo bytes of one exchange, and one traced grow each way
-    v_sh = sharded.frangi_vesselness(shard_volume(vol, mesh),
-                                     sigmas=SHARDED_SIGMAS)
+    # halo bytes of one exchange (the grower's: the uint8 segmentation
+    # with a halo of 1)
     seeds_sh = shard_volume(seeds, mesh)
     pad = pad_halos(seeds_sh.map(lambda b: b.to(torch.uint8)), 1)
     halo_bytes = sum(pad.blocks[i].numel() - seeds_sh.blocks[i].numel()
                      for i in seeds_sh.indices())
-    # (f) K6b at the grower's inputs: each padded block's int32
-    # histograms under its own-box mask and its seed (inner) mask, both
-    # false on the halo, exact against the plain version, and the blocks'
-    # sums equal to the whole volume's histograms
+    del pad
+    out = {"phase": phase, "mesh": "2x2 of cuda:0",
+           "median_s": statistics.median(totals), "runs_s": totals,
+           "stage_medians_s": medians, "single_device_stages_s": single,
+           "grow": rg, "sweeps": sweeps, "launches": counts,
+           "segments": n_seg, "mask_voxels": int(res["mask"].sum()),
+           "skeleton_voxels": int(res["skeleton"].sum()),
+           "halo_bytes_per_iteration": halo_bytes,
+           "host_reads_per_iteration": 1, "peak_mib": max(peaks),
+           "single_vesselness_peak_mib": peaks_v,
+           "pressure_bit_equal": bit_equal,
+           "unsharded_two_runs_rel_spread": spread,
+           "max_residual_m3s": resid,
+           "pipeline_pressures": res["pressure_batch"] is not None,
+           "ground_truth_feasible": bp_from == "ground truth (option 2)",
+           "boundary_pressures_from": bp_from, "flow_nodes": n_nodes,
+           "gates": {"a_vesselness": gate_a, "b_mask_skeleton": gate_b,
+                     "c_segments": gate_c, "d_pressures": gate_d,
+                     "e_launches": gate_e}}
+    traced = ""
+    if extras:
+        v_sh = sharded.frangi_vesselness(shard_volume(vol, mesh),
+                                         sigmas=SHARDED_SIGMAS)
+        out["gates"]["f_k6b_blocks"] = _sharded_k6b(phase, v_sh, v1, seeds,
+                                                    seeds_sh)
+        wall, busy, idle = device_idle(lambda: sharded.region_grow(
+            v_sh, seeds_sh, max_segment_size=10 ** 7,
+            iter_max=SHARDED_ITERS))
+        wall1, busy1, idle1 = device_idle(lambda: region_grow(
+            v1, seeds, max_segment_size=10 ** 7, iter_max=SHARDED_ITERS))
+        out.update({"traced_grow_s": wall, "traced_grow_busy_s": busy,
+                    "traced_grow_idle": idle, "single_grow_traced_s": wall1,
+                    "single_grow_idle": idle1})
+        traced = (f"traced grow {wall:.4f} s, device busy {busy:.4f} s "
+                  f"({idle:.1%} idle), single-device grower {wall1:.4f} s "
+                  f"({idle1:.1%} idle); ")
+    log(phase, f"median total {out['median_s']:.4f} s (runs "
+        f"{', '.join(f'{t:.4f}' for t in totals)}); stage medians "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in medians.items())}; the "
+        f"single-device composition "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in single.items())}; "
+        f"grower {rg} ({sweeps} sweeps, K2 {counts['region_grow_sweep']}"
+        f", K6b {counts['masked_histogram1']}, K1 "
+        f"{counts['frangi_response']}); {n_seg} segments, mask "
+        f"{out['mask_voxels']} voxels, skeleton {out['skeleton_voxels']}; "
+        f"halo {halo_bytes} bytes per iteration, 1 host read per "
+        f"iteration; {traced}peak device memory {max(peaks):.0f} MiB "
+        f"(the whole-volume vesselness {peaks_v}); "
+        f"the pipeline's pressures {out['pipeline_pressures']}; dp rows "
+        f"on its {n_nodes}-node network ({bp_from}) bit-equal to the "
+        f"unsharded batch, and two unsharded runs to each other, "
+        f"{bit_equal}, max "
+        f"residual {resid} m^3/s; two unsharded runs differ by "
+        f"{spread} (relative); gates {out['gates']}")
+    print(json.dumps(out), flush=True)
+    if not all(out["gates"].values()):
+        raise SystemExit(f"{phase}: a gate failed: {out['gates']}")
+    return counts
+
+
+def _vesselness_peaks(vol):
+    """Where ``vol`` is larger than one slab of frangi_vesselness's
+    per-voxel passes: ({"one_slab": its peak device memory in MiB}, the
+    result on the host) of the filter with the whole volume as one slab,
+    its form before the passes were cut into slabs; else ({}, None)."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops import vesselness
+
+    if vol.numel() <= vesselness.SLAB_VOXELS:
+        return {}, None
+    slab = vesselness.SLAB_VOXELS
+    torch.cuda.reset_peak_memory_stats()
+    vesselness.SLAB_VOXELS = vol.numel()
+    try:
+        one = vesselness.frangi_vesselness(vol, sigmas=SHARDED_SIGMAS)
+    finally:
+        vesselness.SLAB_VOXELS = slab
+    torch.cuda.synchronize()
+    out = {"one_slab": torch.cuda.max_memory_allocated() / 2 ** 20}
+    one = one.cpu().numpy()
+    _fresh()
+    return out, one
+
+
+def _sharded_k6b(phase, v_sh, v1, seeds, seeds_sh):
+    """Gate (f): K6b at the sharded grower's inputs, each padded block's
+    int32 histograms under its own-box mask and its seed (inner) mask,
+    both false on the halo, exact against the plain version, and the
+    blocks' sums equal to the whole volume's histograms."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops.region_grow import _bin_ids, _quantize
+    from arterynetwork_tpu_torch.parallel import sharded
+
     hk = _ops("histogram_kernels")
     bins_pad, _ = sharded.quantized_bins(v_sh)
-    sums = torch.zeros((2, 256), dtype=torch.int64, device=dev)
+    sums = torch.zeros((2, 256), dtype=torch.int64, device=v1.device)
     k6b_err, k6b_calls = 0, 0
     for flat, own, inner in sharded.histogram_inputs(bins_pad,
                                                      seeds_sh).values():
@@ -2014,59 +2244,13 @@ def phase_sharded_512(raw):
         torch.bincount(bins1, minlength=256),
         torch.bincount(bins1[seeds.reshape(-1)], minlength=256)])
     gate_f = k6b_err == 0 and bool(torch.equal(sums, whole))
-    log("sharded_512", f"K6b on the {k6b_calls // 2} padded blocks "
+    log(phase, f"K6b on the {k6b_calls // 2} padded blocks "
         f"({', '.join(str(tuple(b.shape)) for b in bins_pad.blocks.reshape(-1))}"
         f"), own and inner masks, int32: max|d| {k6b_err} from the plain "
         f"version; block sums equal to the whole volume's "
         f"{bool(torch.equal(sums, whole))} ({int(whole[0].sum())} voxels, "
         f"{int(whole[1].sum())} seeds)")
-
-    wall, busy, idle = device_idle(lambda: sharded.region_grow(
-        v_sh, seeds_sh, max_segment_size=10 ** 7, iter_max=SHARDED_ITERS))
-    wall1, busy1, idle1 = device_idle(lambda: region_grow(
-        v1, seeds, max_segment_size=10 ** 7, iter_max=SHARDED_ITERS))
-    out = {"phase": "sharded_512", "mesh": "2x2 of cuda:0",
-           "median_s": statistics.median(totals), "runs_s": totals,
-           "stage_medians_s": medians, "single_device_stages_s": single,
-           "grow": rg, "sweeps": sweeps, "launches": counts,
-           "segments": n_seg, "mask_voxels": int(res["mask"].sum()),
-           "skeleton_voxels": int(res["skeleton"].sum()),
-           "halo_bytes_per_iteration": halo_bytes,
-           "host_reads_per_iteration": 1,
-           "traced_grow_s": wall, "traced_grow_busy_s": busy,
-           "traced_grow_idle": idle, "single_grow_traced_s": wall1,
-           "single_grow_idle": idle1, "peak_mib": max(peaks),
-           "pressure_bit_equal": bit_equal,
-           "unsharded_two_runs_rel_spread": spread,
-           "max_residual_m3s": resid,
-           "pipeline_pressures": res["pressure_batch"] is not None,
-           "boundary_pressures_from": bp_from, "flow_nodes": n_nodes,
-           "gates": {"a_vesselness": gate_a, "b_mask_skeleton": gate_b,
-                     "c_segments": gate_c, "d_pressures": gate_d,
-                     "e_launches": gate_e, "f_k6b_blocks": gate_f}}
-    log("sharded_512", f"median total {out['median_s']:.4f} s (runs "
-        f"{', '.join(f'{t:.4f}' for t in totals)}); stage medians "
-        f"{', '.join(f'{k} {v:.4f}' for k, v in medians.items())}; the "
-        f"single-device composition "
-        f"{', '.join(f'{k} {v:.4f}' for k, v in single.items())}; "
-        f"grower {rg} ({sweeps} sweeps, K2 {counts['region_grow_sweep']}"
-        f", K6b {counts['masked_histogram1']}, K1 "
-        f"{counts['frangi_response']}); {n_seg} segments, mask "
-        f"{out['mask_voxels']} voxels, skeleton {out['skeleton_voxels']}; "
-        f"halo {halo_bytes} bytes per iteration, 1 host read per "
-        f"iteration; traced grow {wall:.4f} s, device busy {busy:.4f} s "
-        f"({idle:.1%} idle), single-device grower {wall1:.4f} s "
-        f"({idle1:.1%} idle); peak device memory {max(peaks):.0f} MiB; "
-        f"the pipeline's pressures {out['pipeline_pressures']}; dp rows "
-        f"on its {n_nodes}-node network ({bp_from}) bit-equal to the "
-        f"unsharded batch, and two unsharded runs to each other, "
-        f"{bit_equal}, max "
-        f"residual {resid} m^3/s; two unsharded runs differ by "
-        f"{spread} (relative); gates {out['gates']}")
-    print(json.dumps(out), flush=True)
-    if not all(out["gates"].values()):
-        raise SystemExit(f"sharded_512: a gate failed: {out['gates']}")
-    return counts
+    return gate_f
 
 
 def phase_dryrun_multichip():
@@ -2091,6 +2275,307 @@ def phase_dryrun_multichip():
                 and counts["region_grow_sweep"] > 0):
             raise SystemExit(f"dryrun_multichip({n}): no growth or no K2")
     return counts
+
+
+SPECK_SHAPE = (880, 880, 640)   # BASELINE.md config 5; bench.py:443, 505
+SPECK_TIMED = 2                 # bench_speck_pipeline's timed runs
+SPECK_RG_KW = {"max_segment_size": 10 ** 7, "iter_max": 60}  # bench.py:443-466
+SPECK_CHUNK_SIGMAS = (1.0, 2.0, 3.0)    # bench.py:474-475
+SPECK_CHUNK_Z = 110
+SPECK_N31 = 2 ** 31 + 33        # past the reach of a 32-bit element index
+
+
+def speck_config():
+    """bench.py::bench_speck_pipeline's configuration (bench.py:508-523):
+    pipeline_512's with the bq3 wire (x = 640 is 8-aligned)."""
+    cfg = bench_config()
+    cfg.vesselness.upload_format = "bq3"
+    return cfg
+
+
+def _fresh():
+    """Free the card's cached blocks, so that the next phase's peak is
+    its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _calls(module, name, keep=lambda args: None):
+    """``keep(args)`` of every call of ``module.name`` while inside (the
+    arguments themselves are not held: they may be whole volumes)."""
+    fn, seen = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        seen.append(keep(args))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_speck_pipeline(phantom, raw):
+    """bench.py::bench_speck_pipeline through the port's run_pipeline:
+    phase_pipeline's runs and gates at 880x880x640 (one warm-up and two
+    timed runs, 4 scales x 19 slabs = 76 K1 launches each), every slab
+    uploaded on the bq3 wire, per-stage medians and minima, peak device
+    memory, and the tree-recovery metrics against the phantom."""
+    from arterynetwork_tpu_torch.ops import vesselness
+    from arterynetwork_tpu_torch.utils.fidelity import tree_recovery_metrics
+
+    P = "speck_pipeline"
+    cfg = speck_config()
+    with _calls(vesselness, "_bq_dequant_packed", lambda a: a[3]) as dq, \
+            _calls(vesselness, "_upload_slab_bq_sparse") as sparse:
+        k1, result, runs = phase_pipeline(phantom, raw, P, cfg, SPECK_TIMED)
+    n_slabs = vesselness.slab_plan(raw.shape[0], cfg.vesselness.sigmas,
+                                   vesselness.STREAMED_CHUNK_Z,
+                                   streamed=True)[2]
+    bits = sorted(set(dq))
+    t = runs["timings"]
+    out = {"phase": P, "shape": list(raw.shape), "k1_launches": k1,
+           "median_s": statistics.median(runs["totals"]),
+           "min_s": min(runs["totals"]), "runs_s": runs["totals"],
+           "stage_medians_s": {k: statistics.median(r[k] for r in t)
+                               for k in t[0]},
+           "stage_min_s": {k: min(r[k] for r in t) for k in t[0]},
+           "peak_mib": max(runs["peaks_mib"]), "mask_recall": runs["recall"],
+           "wire_bits": bits, "slabs_per_run": n_slabs,
+           "slabs_decoded": len(dq), "slabs_occupancy_skipped": len(sparse),
+           "segments": len(result["segments"]),
+           "flow_edges": int(result["network"].num_edges),
+           "gt_branches": int(phantom["n_branches"]),
+           **{k: v for k, v in tree_recovery_metrics(
+               result["segments"], result["attrs"], phantom).items()
+              if k not in ("segments", "gt_branches")}}
+    log(P, f"wire: {bits}-bit, {len(dq)} slabs decoded in "
+        f"{SPECK_TIMED + 1} runs of {n_slabs} slabs, {len(sparse)} through "
+        f"the occupancy skip; centerline recall "
+        f"{out['centerline_recall']:.4f}, precision "
+        f"{out['centerline_precision']:.4f}, terminals {out['terminals']} "
+        f"of {out['gt_terminals']}, bifurcations {out['bifurcations']} of "
+        f"{out['gt_bifurcations']}")
+    print(json.dumps(out), flush=True)
+    if bits != [3] or len(dq) != n_slabs * (SPECK_TIMED + 1):
+        raise SystemExit(f"{P}: the bq3 wire did not carry every slab "
+                         f"(bits {bits}, {len(dq)} slabs)")
+    return k1
+
+
+def _count_rounding(data, seed):
+    """At iteration 0 of the growers on ``data``: the bins whose exact
+    count passes 2^24, the counts f32 rounds, and the decision-table signs
+    that differ between the growers' f32 table and an f64 table built
+    from the same exact counts (K6b's int32 counts)."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops.region_grow import (_bin_ids,
+                                                         _decision_table,
+                                                         _gaussian_kernel,
+                                                         _quantize)
+
+    hk = _ops("histogram_kernels")
+    idx, values = _quantize(data, 256)
+    flat = _bin_ids(idx, 256).reshape(-1)
+    del idx
+    ones = torch.ones_like(flat, dtype=torch.bool)
+    hist = hk.masked_histogram1(flat, ones, 256, torch.int32).long()
+    inner = hk.masked_histogram1(flat, seed.reshape(-1), 256,
+                                 torch.int32).long()
+    K = _gaussian_kernel(values, 2.25, torch.float32)
+    f32 = _decision_table(K, inner.float(), hist.float() - inner.float())
+    f64 = _decision_table(K.double(), inner.double(),
+                          (hist - inner).double())
+    return {"bins_over_2^24": int((hist > 2 ** 24).sum()),
+            "max_bin_count": int(hist.max()),
+            "counts_rounded_in_f32": int((hist.float().long() != hist).sum()),
+            "table_signs_differing": int(((f32 >= 0) != (f64 >= 0)).sum())}
+
+
+def phase_speck_region_grow(vol, seed):
+    """bench.py::bench_speck_region_grow on the card (bench.py:418-484):
+    the tube phantom at 880x880x640 (radius 3), 10^7 voxels and 60
+    iterations at most, through region_grow "auto" (K2 + K6b), "xla" (K6b
+    + K7) and region_grow_frontier (K5 + K6b), each timed once after a
+    warm-up: one (iterations, count, stop reason) and one mask for all
+    three, each grower's kernels launched (K7 once per full-grid pass);
+    the counts at iteration 0 past 2^24 and the decision-table signs they
+    move; then frangi_vesselness_chunked (sigmas 1, 2, 3; 110-row slabs)
+    timed once after a warm-up, one K1 launch per slab and scale, within
+    K1's bound of its twin.  Returns (launches by grower, the chunked
+    driver's K1 launches)."""
+    import torch
+
+    from arterynetwork_tpu_torch.ops import (region_grow,
+                                             region_grow_frontier,
+                                             vesselness, vesselness_fused)
+
+    P = "speck_region_grow"
+    data = torch.from_numpy(vol).cuda()
+    sd = torch.from_numpy(seed).cuda()
+    kw = SPECK_RG_KW
+    growers = {
+        "auto": (lambda: region_grow(data, sd, **kw),
+                 ("region_grow_sweep", "masked_histogram1")),
+        "xla": (lambda: region_grow(data, sd, backend="xla", **kw),
+                ("masked_histogram1", "sign_lookup")),
+        "frontier": (lambda: region_grow_frontier(data, sd, **kw),
+                     ("region_grow_frontier", "masked_histogram1")),
+    }
+    results, launches, secs = {}, {}, {}
+    for name, (fn, kernels) in growers.items():
+        fn()                                   # warm-up
+        res, secs[name], counts = _grow_run(fn)
+        it, n = int(res.iterations), int(res.segmented_count)
+        used = {k: v for k, v in counts.items() if v}
+        log(P, f"{name}: {secs[name]:.4f} s warm, {it} iterations, {n} "
+            f"segmented, stop {int(res.stop_reason)}, "
+            f"{vol.size * it / secs[name]:.4e} voxel-sweeps/s; launches "
+            f"{used}")
+        if not all(counts[k] > 0 for k in kernels):
+            raise SystemExit(f"{P} {name}: expected launches of "
+                             f"{kernels}, got {counts}")
+        passes = it + (int(res.stop_reason) == 0)
+        if "sign_lookup" in kernels and counts["sign_lookup"] != passes:
+            raise SystemExit(f"{P} {name}: {counts['sign_lookup']} K7 "
+                             f"launches for {passes} passes")
+        results[name], launches[name] = res, counts
+    a = results["auto"]
+    key = (int(a.iterations), int(a.segmented_count), int(a.stop_reason))
+    for name in ("xla", "frontier"):
+        r = results[name]
+        if ((int(r.iterations), int(r.segmented_count), int(r.stop_reason))
+                != key or not torch.equal(r.segmented_map, a.segmented_map)):
+            raise SystemExit(f"{P}: {name} and auto reach different fixed "
+                             f"points")
+    del results, a, r
+    rounding = _count_rounding(data, sd)
+    log(P, f"auto, xla and frontier: one fixed point {key}; at iteration "
+        f"0: {json.dumps(rounding)}")
+
+    want = vesselness.k1_launches(vol.shape[0], SPECK_CHUNK_SIGMAS,
+                                  SPECK_CHUNK_Z)
+
+    def chunked():
+        return vesselness.frangi_vesselness_chunked(
+            data, sigmas=SPECK_CHUNK_SIGMAS, chunk_z=SPECK_CHUNK_Z)
+
+    chunked()                                  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = chunked()
+    torch.cuda.synchronize()
+    t_ch = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    counts = read_counts()
+    k1 = vesselness_fused.frangi_response_max_
+    vesselness_fused.frangi_response_max_ = \
+        vesselness_fused.frangi_response_plain_
+    try:
+        twin = chunked()
+    finally:
+        vesselness_fused.frangi_response_max_ = k1
+    if read_counts() != counts:
+        raise SystemExit(f"{P}: the twin run launched a kernel")
+    d = (out - twin).abs()
+    within = bool((d <= K1_TOL + 1e-4 * twin.abs()).all())
+    rec = {"phase": P, "shape": list(vol.shape),
+           "grower_s": secs, "fixed_point": key,
+           "launches": {k: {n: v for n, v in c.items() if v}
+                        for k, c in launches.items()},
+           "count_rounding": rounding, "chunked_s": t_ch,
+           "chunked_peak_mib": peak,
+           "chunked_k1": counts["frangi_response"],
+           "chunked_max_abs_diff_twin": float(d.max())}
+    print(json.dumps(rec), flush=True)
+    _check(counts["frangi_response"] == want and within, P,
+           f"frangi_vesselness_chunked {t_ch:.3f} s warm (peak "
+           f"{peak:.0f} MiB), K1 launches {counts['frangi_response']} "
+           f"(expected {want}); against its twin on the card max|d| "
+           f"{float(d.max()):.3e} within 1e-5 + 1e-4|ref| {within}")
+    return launches, counts["frangi_response"]
+
+
+def phase_speck_kernels(raw, vol, seed):
+    """Each kernel against its plain version on the card at Speck shapes:
+    K1 on a smoothed (68, 880, 640) slab of the Speck raw volume per
+    scale (within 1e-5); K6b, K6a, K2, K5, K7 sign and f32 values on the
+    Speck tube's state after 20 iterations (4.96e8 voxels) and K7's f64
+    values (3.96e9 output bytes); K2 on each halo-padded block of a 2x2
+    mesh of that state; then n = 2^31 + 33 uint8 bins: K6b on random bins
+    under a random mask and on one bin under an all-true mask (a count
+    past 2^31, int64), K7 sign on random bins.  Exact, but for K1.
+    Device and call ms, bounds and library-call ms as at 512."""
+    import torch
+
+    P = "speck_kernels"
+    hk, lk = _ops("histogram_kernels"), _ops("lookup_kernels")
+    k1_err, k1_rec, _ = _k1_slab(P, raw)
+    rec = {"frangi_response": {"max_abs_err": k1_err, **k1_rec}}
+    _fresh()
+    st = _grow_state(P, vol, seed, SPECK_RG_KW["max_segment_size"])
+    cases = _state_cases(st)
+    bins, n = st["bins"], st["flat"].numel()
+    t64 = st["table"].double()
+    cases["table_lookup f64"] = (
+        lambda: (lk.table_lookup(bins, t64),),
+        lambda: (lk.table_lookup_plain(bins, t64),),
+        n + 8 * n + 256 * 8, lambda: (t64[bins.long()],))
+    rec.update(_run_cases(P, cases))
+
+    def same(label, out, ref):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise SystemExit(f"{P}: {label} differs from the plain "
+                             f"version (max|d| {_max_err(out, ref)})")
+
+    blocks = _mesh_windows(_ops("region_grow_fused"), st["seg8"], bins,
+                           st["words"], same)
+    log(P, f"K2 on the {blocks} halo-padded blocks of a 2x2 mesh of the "
+        f"state: equal to the plain version, reassembled equal to the "
+        f"whole sweep")
+    del st, cases, bins, t64
+    _fresh()
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    n = SPECK_N31
+    rb = torch.randint(0, 256, (n,), dtype=torch.uint8, device="cuda",
+                       generator=g)
+    rm = torch.randint(0, 2, (n,), dtype=torch.uint8, device="cuda",
+                       generator=g).bool()
+    table = torch.randn(256, device="cuda", generator=g)
+    n_set = int(rm.sum())
+    rec.update(_run_cases(P, {
+        "masked_histogram1 n=2^31+33": (
+            lambda: (hk.masked_histogram1(rb, rm),),
+            lambda: (hk.masked_histograms_plain(rb, rm[None])[0],),
+            n + n_set + 256 * 4, None),
+        "sign_lookup n=2^31+33": (
+            lambda: (lk.sign_lookup(rb, table),),
+            lambda: (lk.sign_lookup_plain(rb, table),),
+            2 * n + 256 * 4, None)}))
+    del rb, rm
+    _fresh()
+    one_bin = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    all_set = torch.ones(n, dtype=torch.bool, device="cuda")
+    out = hk.masked_histogram1(one_bin, all_set, 256, torch.int64)
+    ref = hk.masked_histograms_plain(one_bin, all_set[None], 256,
+                                     torch.int64)[0]
+    torch.cuda.synchronize()
+    _check(torch.equal(out, ref), P, f"K6b on one bin of {n} voxels, "
+           f"int64: bin 0 {int(out[0])} (plain {int(ref[0])}), the rest "
+           f"{int(out[1:].abs().sum())}")
+    return rec
 
 
 FLOW_DEPTH = 13      # bench.py::bench_flow_large, "16k"
@@ -2633,7 +3118,7 @@ def main():
 
     k1, fused_launches = phase_kernel(raw)
     phase_small()
-    launches, result512 = phase_pipeline(phantom, raw)
+    launches, result512, _ = phase_pipeline(phantom, raw)
 
     from arterynetwork_tpu_torch.utils.phantoms import tube_phantom
 
@@ -2647,10 +3132,46 @@ def main():
     voxel = phase_voxel_options(phantom, raw)
     graph_k1 = phase_graph_path(phantom, raw)
     t1 = time.perf_counter()
-    sharded_counts = phase_sharded_512(raw)
+    sharded_counts = phase_sharded(raw)
     dryrun_counts = phase_dryrun_multichip()
     log("timing", f"sharded_512 and dryrun_multichip: "
         f"{time.perf_counter() - t1:.1f} s")
+    _fresh()
+
+    t_speck = t1 = time.perf_counter()
+    speck = vascular_tree_phantom(SPECK_SHAPE, n_branches=800,
+                                  root_radius=7.0, seed=0)
+    t_tree = time.perf_counter() - t1
+    raw_s = phantom_raw_volume(speck)
+    log("data", f"{'x'.join(map(str, SPECK_SHAPE))} phantom, "
+        f"{speck['n_branches']} branches, {int(speck['mask'].sum())} vessel "
+        f"voxels: tree {t_tree:.1f} s, raw volume "
+        f"{time.perf_counter() - t1 - t_tree:.1f} s on the host")
+    t1 = time.perf_counter()
+    speck_k1 = phase_speck_pipeline(speck, raw_s)
+    del speck
+    _fresh()
+    log("timing", f"speck_pipeline: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    vol_s, seed_s = tube_phantom(SPECK_SHAPE, radius=3)
+    log("data", f"{'x'.join(map(str, SPECK_SHAPE))} tube phantom: "
+        f"{time.perf_counter() - t1:.1f} s on the host")
+    t1 = time.perf_counter()
+    speck_grown, speck_chunked = phase_speck_region_grow(vol_s, seed_s)
+    _fresh()
+    log("timing", f"speck_region_grow: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    speck_rec = phase_speck_kernels(raw_s, vol_s, seed_s)
+    del vol_s, seed_s
+    _fresh()
+    log("timing", f"speck_kernels: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    speck_sharded = phase_sharded(raw_s, "speck_sharded", timed=1,
+                                  extras=False)
+    del raw_s
+    _fresh()
+    log("timing", f"speck_sharded: {time.perf_counter() - t1:.1f} s; the "
+        f"Speck phases with their data {time.perf_counter() - t_speck:.1f} s")
     t_flow = time.perf_counter()
     for phase in (lambda: phase_flow_determinism(result512["network"]),
                   phase_flow_solvers, phase_longitudinal, phase_studies,
@@ -2672,7 +3193,12 @@ def main():
                  "frangi_response": voxel["chunked"]},
              "sharded_512": sharded_counts,
              "dryrun_multichip(8)": dryrun_counts,
-             "frangi_response_fused": {"frangi_response": fused_launches}}
+             "frangi_response_fused": {"frangi_response": fused_launches},
+             "speck_pipeline": {"frangi_response": speck_k1},
+             **{f"speck_region_grow {k}": v for k, v in speck_grown.items()},
+             "speck frangi_vesselness_chunked": {
+                 "frangi_response": speck_chunked},
+             "speck_sharded": speck_sharded}
     log("launches", json.dumps({p: {k: v for k, v in c.items() if v}
                                 for p, c in paths.items()}))
 
@@ -2684,7 +3210,7 @@ def main():
         "launches": launches,
         "launches_by_path": {p: c["frangi_response"] for p, c in
                              paths.items() if c.get("frangi_response")},
-        **k1}]
+        **k1, "speck": speck_rec["frangi_response"]}]
     for name, source, replaces, n in (
             ("masked_histogram1", "histogram.cu",
              "arterynetwork_tpu/ops/pallas_kernels.py:124",
@@ -2707,6 +3233,10 @@ def main():
                         "launches_by_path": {p: c[name] for p, c in
                                              paths.items() if c.get(name)},
                         **rec[name]})
+    for k in kernels[1:]:           # at Speck shapes (speck_kernels)
+        k["speck"] = {c: r for c, r in speck_rec.items()
+                      if c.split()[0] == k["name"]
+                      or k["name"] == "sign_lookup" and c.startswith("table")}
     for k in kernels:               # K2's interior-window entry
         if k["name"] == "region_grow_sweep":
             k["window"] = rec["region_grow_sweep window"]

@@ -51,11 +51,12 @@ def _raw(kind):
     return phantom_raw_volume(ph)
 
 
-def _bench_config(dtype):
-    """bench.py::bench_pipeline_512's configuration."""
+def _bench_config(dtype, upload_format="bq4"):
+    """bench.py::bench_pipeline_512's configuration (with "bq3",
+    bench_speck_pipeline's)."""
     cfg = PipelineConfig()
     cfg.vesselness.sigmas = (0.75, 1.0, 2.0, 3.0)
-    cfg.vesselness.upload_format = "bq4"
+    cfg.vesselness.upload_format = upload_format
     cfg.segmentation.global_threshold_fraction = 0.3
     cfg.segmentation.weak_threshold_fraction = 0.03
     cfg.segmentation.border_margin_voxels = 6
@@ -71,12 +72,18 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
-@pytest.mark.parametrize("kind,dtype,tol", [("tube", "float64", 1e-9),
-                                            ("tree", "float64", 1e-9),
-                                            ("tree", "float32", 1e-5)])
-def test_run_pipeline_matches_jax(kind, dtype, tol):
+@pytest.mark.parametrize("kind,dtype,tol,wire", [
+    pytest.param("tube", "float64", 1e-9, "bq4", id="tube-float64-1e-09"),
+    pytest.param("tree", "float64", 1e-9, "bq4", id="tree-float64-1e-09"),
+    pytest.param("tree", "float32", 1e-5, "bq4", id="tree-float32-1e-05"),
+    # the Speck configuration's wire: x = 64 is 8-aligned, so bq3 runs
+    pytest.param("tree", "float64", 1e-9, "bq3", id="tree-float64-1e-09-bq3"),
+    pytest.param("tree", "float32", 1e-5, "bq3", id="tree-float32-1e-05-bq3")])
+def test_run_pipeline_matches_jax(kind, dtype, tol, wire):
     raw = _raw(kind)
-    cfg = _bench_config(dtype)
+    if wire == "bq3":
+        assert raw.shape[2] % 8 == 0
+    cfg = _bench_config(dtype, wire)
     ref = jax_run_pipeline(raw_volume=raw, config=cfg)
     ref_mask = ref["mask"].copy()   # the JAX mask lives in reused scratch
     out = run_pipeline(raw_volume=raw, config=convert.pipeline_config(cfg),
