@@ -16,6 +16,10 @@ import torch
 
 from .region_grow import _as_device, _resolve_device
 
+# The labels are int32: each voxel's flat index, the background sentinel n
+# and n + 1 must fit, so a volume holds at most 2^31 - 2 voxels.
+MAX_VOXELS = 2 ** 31 - 2
+
 
 def _axis_min3(x, axis):
     """Min over the 3-window along ``axis`` (nothing outside)."""
@@ -30,6 +34,17 @@ def _axis_min3(x, axis):
     return out
 
 
+def check_voxel_count(shape):
+    """Raise ValueError when a volume of ``shape`` has more voxels than
+    int32 labels can index (``MAX_VOXELS``)."""
+    n = int(np.prod(shape, dtype=np.int64))
+    if n > MAX_VOXELS:
+        raise ValueError(
+            f"connected_components labels with int32 flat indices: a volume "
+            f"of shape {tuple(shape)} has {n} voxels, at most {MAX_VOXELS} "
+            f"(2^31 - 2) are allowed")
+
+
 def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
                          device=None):
     """Label 26-connected (connectivity=3) or 6-connected (connectivity=1)
@@ -42,8 +57,11 @@ def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
     3 = faces+edges+corners (2 is approximated as 3, as in the JAX
     package; the reference always uses maxHop=3).  The host reads one
     flag per round; ``connected_components.rounds`` holds the rounds the
-    last call ran.
+    last call ran.  A volume of 2^31 - 1 voxels or more raises ValueError
+    before anything is allocated (``check_voxel_count``).
     """
+    check_voxel_count(mask.shape if hasattr(mask, "shape")
+                      else np.shape(mask))
     device = _resolve_device(mask, device)
     fg = _as_device(mask, device) != 0
     shape = fg.shape

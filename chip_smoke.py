@@ -39,10 +39,12 @@ Phases, each printing its own lines:
                f64 full-grid path (no K2) and equals the CPU's; the
                voxels where the f32 fused grower differs are counted;
   7. region_grow_kernels — K6b, K6a, K2 (and the banded entries K3/K4
-               run on it), K5 and K7 (values and sign modes) against their
-               plain PyTorch versions on the card, at the region-grow
+               run on it), K5 and K7 (sign, f32 and f64 values) against
+               their plain PyTorch versions on the card, at the region-grow
                path's shapes (bench.py's 512x512x170 tube phantom and its
-               state after 20 iterations): equal outputs; device and call
+               state after 20 iterations), K7's values also on uniform
+               random uint8 bins (f32, f64) and on the tube's bins as
+               int32: equal outputs; device and call
                times of kernel, plain version and, where one PyTorch call
                computes the same function, that call; each kernel's bound;
                K5's fixed cost (no tile active);
@@ -130,8 +132,10 @@ Phases, each printing its own lines:
      speck_kernels — K1 on a smoothed (68, 880, 640) slab, K6b, K6a, K2,
                K5 and K7 (sign, f32 and f64 values) on the Speck tube's
                state after 20 iterations, K2 on each halo-padded block of
-               a 2x2 mesh of it, then n = 2^31 + 33 uint8 bins (K6b on
-               random bins and on one bin holding them all, K7 sign):
+               a 2x2 mesh of it (the block with the most boundary
+               voxels timed), then n = 2^31 + 33 uint8 bins (K6b on
+               random bins and on one bin holding them all, K7 sign and
+               f32 values):
                each against its plain version, exact but K1, with ms,
                bounds and library-call ms;
      speck_sharded — sharded_512's phase on the Speck raw volume, one
@@ -702,9 +706,16 @@ def plain_kernels():
             setattr(m, a, f)
 
 
-def _max_err(outs, refs):
-    return max(float((a.double() - b.double()).abs().max()) if a.numel()
-               else 0.0 for a, b in zip(outs, refs))
+def _max_err(outs, refs, step=1 << 28):
+    """max |a - b| over the pairs, in f64, ``step`` elements at a time
+    (an output of 2^31 elements would need 17 GB per f64 copy)."""
+    def err(a, b):
+        a, b = a.reshape(-1), b.reshape(-1)
+        return max((float((a[i:i + step].double() - b[i:i + step].double())
+                          .abs().max())
+                    for i in range(0, a.numel(), step)), default=0.0)
+
+    return max(err(a, b) for a, b in zip(outs, refs))
 
 
 def _frontier_bytes(ids, nact, shape, tile, n_bnd):
@@ -906,6 +917,24 @@ def _mesh_windows(fused, seg, bins, words, same):
     return n
 
 
+def _mesh_block(seg, bins, bnd):
+    """The block of a 2x2 mesh of the state with the most boundary voxels,
+    with its one-voxel halo (the sharded grower's K2 call): (its index,
+    seg block, bins block, window, the boundary voxels in the window)."""
+    from arterynetwork_tpu_torch.parallel.halo import (make_volume_mesh,
+                                                       pad_halos,
+                                                       shard_volume)
+
+    mesh = make_volume_mesh([seg.device] * 4)
+    own = shard_volume(bnd, mesh)
+    n_bnd = {idx: int(own.blocks[idx].sum()) for idx in own.indices()}
+    idx = max(n_bnd, key=n_bnd.get)
+    seg_p = pad_halos(shard_volume(seg, mesh), 1)
+    bins_p = pad_halos(shard_volume(bins, mesh), 1)
+    return (idx, seg_p.blocks[idx], bins_p.blocks[idx], seg_p.window(idx),
+            n_bnd[idx])
+
+
 def _grow_state(phase, vol, seed, max_segment_size):
     """The region-growing kernels' inputs at the path's shapes: the tube
     phantom's bins and its state after 20 full-grid iterations, the
@@ -949,14 +978,15 @@ def _grow_state(phase, vol, seed, max_segment_size):
 
 def _state_cases(st):
     """{name: (kernel, plain version, bytes it must move, library call)}
-    of K6b, K6a, K2, K5 and K7 (sign and f32 values) on a ``_grow_state``;
-    K5 sweeps a copy of the state."""
+    of K6b, K6a, K2, K5 and K7 (sign, f32 and f64 values) on a
+    ``_grow_state``; K5 sweeps a copy of the state."""
     import torch
 
     hk, fused = _ops("histogram_kernels"), _ops("region_grow_fused")
     front, lk = _ops("region_grow_frontier"), _ops("lookup_kernels")
     flat, masks, bins = st["flat"], st["masks"], st["bins"]
     seg8, words, table = st["seg8"], st["words"], st["table"]
+    t64 = table.double()
     n = flat.numel()
     w = masks.float()               # the library calls' weights
     front_a, front_b = seg8.clone(), seg8.clone()
@@ -991,6 +1021,10 @@ def _state_cases(st):
             lambda: (lk.table_lookup(bins, table),),
             lambda: (lk.table_lookup_plain(bins, table),),
             n + 4 * n + 256 * 4, lambda: (table[bins.long()],)),
+        "table_lookup f64": (
+            lambda: (lk.table_lookup(bins, t64),),
+            lambda: (lk.table_lookup_plain(bins, t64),),
+            n + 8 * n + 256 * 8, lambda: (t64[bins.long()],)),
         "sign_lookup": (
             lambda: (lk.sign_lookup(bins, table),),
             lambda: (lk.sign_lookup_plain(bins, table),),
@@ -1066,6 +1100,25 @@ def phase_region_grow_kernels(vol, seed):
     n_bnd_win = int(st["bnd"][128:384, 128:384].sum())
     log(P, f"windowed K2 block {tuple(seg_b.shape)}, window {win}: "
         f"{n_bnd_win} boundary voxels in the window")
+    # K7's values on bins the tube never gives: uniform random uint8 bins
+    # (every table entry equally often: shared-memory bank conflicts) and
+    # the tube's bins as int32
+    lk = _ops("lookup_kernels")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    uni = torch.randint(0, 256, tuple(bins.shape), dtype=torch.uint8,
+                        device="cuda", generator=g)
+    bins32 = bins.int()
+    t32, n = st["table"], bins.numel()
+    t64 = t32.double()
+    for label, b, t in (("uniform bins", uni, t32),
+                        ("f64 uniform bins", uni, t64),
+                        ("int32 bins", bins32, t32)):
+        cases[f"table_lookup {label}"] = (
+            lambda b=b, t=t: (lk.table_lookup(b, t),),
+            lambda b=b, t=t: (lk.table_lookup_plain(b, t),),
+            n * (b.element_size() + t.element_size()) + 256
+            * t.element_size(), lambda b=b, t=t: (t[b.long()],))
     cases.update({
         "region_grow_sweep window": (
             lambda: _in_window(fused.fused_sweep_counts(
@@ -2508,13 +2561,14 @@ def phase_speck_region_grow(vol, seed):
 def phase_speck_kernels(raw, vol, seed):
     """Each kernel against its plain version on the card at Speck shapes:
     K1 on a smoothed (68, 880, 640) slab of the Speck raw volume per
-    scale (within 1e-5); K6b, K6a, K2, K5, K7 sign and f32 values on the
-    Speck tube's state after 20 iterations (4.96e8 voxels) and K7's f64
-    values (3.96e9 output bytes); K2 on each halo-padded block of a 2x2
-    mesh of that state; then n = 2^31 + 33 uint8 bins: K6b on random bins
-    under a random mask and on one bin under an all-true mask (a count
-    past 2^31, int64), K7 sign on random bins.  Exact, but for K1.
-    Device and call ms, bounds and library-call ms as at 512."""
+    scale (within 1e-5); K6b, K6a, K2, K5, K7 sign, f32 and f64 values
+    on the Speck tube's state after 20 iterations (4.96e8 voxels; 3.96e9
+    output bytes in f64); K2 on each halo-padded block of a 2x2 mesh of
+    that state, and timed on the one with the most boundary voxels; then
+    n = 2^31 + 33 uint8 bins: K6b on random bins under a random mask and
+    on one bin under an all-true mask (a count past 2^31, int64), K7 sign
+    and f32 values on random bins.  Exact, but for K1.  Device and call
+    ms, bounds and library-call ms as at 512 (none past 2^31)."""
     import torch
 
     P = "speck_kernels"
@@ -2524,12 +2578,7 @@ def phase_speck_kernels(raw, vol, seed):
     _fresh()
     st = _grow_state(P, vol, seed, SPECK_RG_KW["max_segment_size"])
     cases = _state_cases(st)
-    bins, n = st["bins"], st["flat"].numel()
-    t64 = st["table"].double()
-    cases["table_lookup f64"] = (
-        lambda: (lk.table_lookup(bins, t64),),
-        lambda: (lk.table_lookup_plain(bins, t64),),
-        n + 8 * n + 256 * 8, lambda: (t64[bins.long()],))
+    bins = st["bins"]
     rec.update(_run_cases(P, cases))
 
     def same(label, out, ref):
@@ -2543,7 +2592,19 @@ def phase_speck_kernels(raw, vol, seed):
     log(P, f"K2 on the {blocks} halo-padded blocks of a 2x2 mesh of the "
         f"state: equal to the plain version, reassembled equal to the "
         f"whole sweep")
-    del st, cases, bins, t64
+    # one of those blocks timed, as the 512 phase times its window case
+    fused, words = _ops("region_grow_fused"), st["words"]
+    idx, seg_b, bins_b, win, n_bnd_win = _mesh_block(st["seg8"], bins,
+                                                     st["bnd"])
+    log(P, f"windowed K2 on block {idx} {tuple(seg_b.shape)}, window "
+        f"{win}: {n_bnd_win} boundary voxels in the window")
+    rec.update(_run_cases(P, {"region_grow_sweep window": (
+        lambda: _in_window(fused.fused_sweep_counts(
+            seg_b, bins_b, words, window=win), win),
+        lambda: _in_window(fused.fused_sweep_plain(
+            seg_b, bins_b, words, window=win), win),
+        2 * seg_b.numel() + n_bnd_win + 2 * 256 * 4, None)}))
+    del st, cases, bins, seg_b, bins_b
     _fresh()
 
     g = torch.Generator(device="cuda")
@@ -2564,7 +2625,14 @@ def phase_speck_kernels(raw, vol, seed):
             lambda: (lk.sign_lookup(rb, table),),
             lambda: (lk.sign_lookup_plain(rb, table),),
             2 * n + 256 * 4, None)}))
-    del rb, rm
+    del rm
+    _fresh()
+    # f32 values (8.6 GB out; the plain gather's int64 index 17 GB more)
+    rec.update(_run_cases(P, {"table_lookup n=2^31+33": (
+        lambda: (lk.table_lookup(rb, table),),
+        lambda: (lk.table_lookup_plain(rb, table),),
+        5 * n + 256 * 4, None)}))
+    del rb
     _fresh()
     one_bin = torch.zeros(n, dtype=torch.uint8, device="cuda")
     all_set = torch.ones(n, dtype=torch.bool, device="cuda")
@@ -3237,9 +3305,12 @@ def main():
         k["speck"] = {c: r for c, r in speck_rec.items()
                       if c.split()[0] == k["name"]
                       or k["name"] == "sign_lookup" and c.startswith("table")}
-    for k in kernels:               # K2's interior-window entry
+    for k in kernels:       # K2's interior-window entry, K7's values route
         if k["name"] == "region_grow_sweep":
             k["window"] = rec["region_grow_sweep window"]
+        if k["name"] == "sign_lookup":
+            k["values"] = {c: r for c, r in rec.items()
+                           if c.startswith("table_lookup")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -216,7 +216,13 @@ def _assert_same_bytes(out, ref):
 @pytest.mark.parametrize("sign", [False, True])
 @pytest.mark.parametrize("table_dtype", TABLE_DTYPES)
 @pytest.mark.parametrize("bin_dtype", BIN_DTYPES)
-@pytest.mark.parametrize("n", [1, 15, 17, 4099, 200_000])
+@pytest.mark.parametrize("n", [1, 15, 17, 4099, 200_000,
+                               # a block's step is 256 threads x 4
+                               # groups: 2,048 voxels in f64, 4,096 in
+                               # f32 and in sign mode (one group of 16)
+                               2047, 2048, 2049, 4095, 4096, 4097,
+                               # many steps plus a tail of each size
+                               4096 * 300 + 5, 9_000_011])
 def test_kernel_matches_plain(cuda, n, bin_dtype, table_dtype, sign):
     bins, table = _case(n, bin_dtype, table_dtype)
     tb, tt = torch.from_numpy(bins).to(cuda), torch.from_numpy(table).to(cuda)
@@ -247,6 +253,116 @@ def test_kernel_unaligned_view_and_big_table(cuda, sign):
         np.int32)).to(cuda)
     _assert_same_bytes(fn(ib, big), plain(ib, big))
     _assert_same_bytes(fn(ib[1:], big), plain(ib[1:], big))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sign", [False, True])
+@pytest.mark.parametrize("table_dtype", TABLE_DTYPES)
+@pytest.mark.parametrize("bins_kind", ["uniform", "skewed"])
+def test_kernel_uniform_and_skewed_bins(cuda, bins_kind, table_dtype, sign):
+    """A (64, 512, 170) volume of uint8 bins: every bin equally often
+    (shared-memory bank conflicts) or 94% of the voxels in one bin (the
+    tube's background: broadcasts)."""
+    rng = np.random.default_rng(3)
+    shape = (64, 512, 170)
+    bins = rng.integers(0, 256, shape).astype(np.uint8)
+    if bins_kind == "skewed":
+        bins[rng.random(shape) < 0.94] = 17
+    table = rng.normal(0, 1, 256).astype(table_dtype)
+    table[:len(SPECIALS)] = SPECIALS
+    tb, tt = torch.from_numpy(bins).to(cuda), torch.from_numpy(table).to(cuda)
+    fn = lk.sign_lookup if sign else lk.table_lookup
+    plain = lk.sign_lookup_plain if sign else lk.table_lookup_plain
+    _assert_same_bytes(fn(tb, tt), plain(tb, tt))
+
+
+def _raw_launch(bins, table, out, sign):
+    """The kernel on any ``out`` (the wrapper allocates its own)."""
+    rc = lk._kernel_lib().table_lookup(
+        bins.data_ptr(), bins.element_size(), table.data_ptr(),
+        table.element_size(), table.numel(), out.data_ptr(), int(sign),
+        bins.numel(), torch.cuda.get_device_properties(
+            bins.device).multi_processor_count,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sign", [False, True])
+@pytest.mark.parametrize("table_dtype", TABLE_DTYPES)
+@pytest.mark.parametrize("bin_dtype", BIN_DTYPES)
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_kernel_unaligned_bins_and_output(cuda, offset, bin_dtype,
+                                          table_dtype, sign):
+    """Bin views and output views 1-15 elements past a 16-byte boundary
+    (the scalar path), each alone and both together; the elements around
+    the output view stay untouched."""
+    bins, table = _case(10_007 + offset, bin_dtype, table_dtype)
+    tb, tt = torch.from_numpy(bins).to(cuda), torch.from_numpy(table).to(cuda)
+    plain = lk.sign_lookup_plain if sign else lk.table_lookup_plain
+    fn = lk.sign_lookup if sign else lk.table_lookup
+    view = tb[offset:]
+    _assert_same_bytes(fn(view, tt), plain(view, tt))
+    n = 10_007
+    for b in (tb[:n], tb[offset:offset + n]):
+        ref = plain(b, tt)
+        store = torch.zeros(n + 32, dtype=ref.dtype, device=cuda)
+        store.view(torch.uint8).fill_(0x5A)
+        before = store.view(torch.uint8).clone()     # bytes, not bools
+        store_bytes = store.view(torch.uint8)
+        out = store[offset:offset + n]
+        _raw_launch(b, tt, out, sign)
+        _assert_same_bytes(out, ref)
+        assert torch.equal(store_bytes[:offset * ref.element_size()],
+                           before[:offset * ref.element_size()])
+        assert torch.equal(store_bytes[(offset + n) * ref.element_size():],
+                           before[(offset + n) * ref.element_size():])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sign", [False, True])
+@pytest.mark.parametrize("table_dtype", TABLE_DTYPES)
+@pytest.mark.parametrize("over", [0, 1])
+def test_kernel_table_at_and_over_the_staging_limit(cuda, over, table_dtype,
+                                                    sign):
+    """int32 bins into a table of exactly 48 KB of entries (staged in
+    shared memory) and of one entry more (read through the read-only
+    cache); in sign mode an entry is one byte."""
+    entry = 1 if sign else np.dtype(table_dtype).itemsize
+    num_bins = 48 * 1024 // entry + over
+    rng = np.random.default_rng(num_bins)
+    table = rng.normal(0, 1, num_bins).astype(table_dtype)
+    bins = rng.integers(0, num_bins, 300_017).astype(np.int32)
+    tb, tt = torch.from_numpy(bins).to(cuda), torch.from_numpy(table).to(cuda)
+    fn = lk.sign_lookup if sign else lk.table_lookup
+    plain = lk.sign_lookup_plain if sign else lk.table_lookup_plain
+    _assert_same_bytes(fn(tb, tt), plain(tb, tt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sign", [False, True])
+@pytest.mark.parametrize("table_dtype", TABLE_DTYPES)
+@pytest.mark.parametrize("num_bins", [256, 20_000])
+def test_kernel_out_of_range_bins_give_zero(cuda, num_bins, table_dtype,
+                                            sign):
+    """int32 bins below 0 or at and past ``num_bins`` (on both sides of
+    a 16-byte group, staged and unstaged tables) give 0 / False."""
+    rng = np.random.default_rng(5)
+    table = rng.normal(0, 1, num_bins).astype(table_dtype)
+    bins = rng.integers(0, num_bins, 100_003).astype(np.int32)
+    bad = rng.random(bins.shape) < 0.3
+    bins[bad] = rng.choice(np.array([-1, -2 ** 31, num_bins, num_bins + 1,
+                                     2 ** 31 - 1], np.int32), int(bad.sum()))
+    tb, tt = torch.from_numpy(bins).to(cuda), torch.from_numpy(table).to(cuda)
+    ok = torch.from_numpy(~bad).to(cuda)
+    safe = torch.where(ok, tb, 0)
+    if sign:
+        ref = lk.sign_lookup_plain(safe, tt) & ok
+        _assert_same_bytes(lk.sign_lookup(tb, tt), ref)
+    else:
+        ref = torch.where(ok, lk.table_lookup_plain(safe, tt), 0)
+        _assert_same_bytes(lk.table_lookup(tb, tt), ref)
 
 
 # ----------------------------------------------------------------------

@@ -298,6 +298,38 @@ def test_connected_components_match_jax(connectivity, max_rounds):
         assert len(np.unique(ref)) > len(np.unique(full))
 
 
+@pytest.mark.parametrize("volume", ["numpy_2^31", "numpy_2^31-1",
+                                    "torch_2^31"])
+def test_connected_components_refuses_int32_overflow(volume, monkeypatch):
+    """A volume whose flat index or background sentinel would wrap in
+    int32 raises ValueError naming the limit and the shape, before
+    anything is allocated (the inputs are zero-memory broadcast views)."""
+    shape = {"numpy_2^31": (1024, 1024, 2048), "numpy_2^31-1":
+             (1, 1, 2 ** 31 - 1), "torch_2^31": (2048, 1024, 1024)}[volume]
+    mask = (torch.ones(1, dtype=torch.uint8).expand(shape)
+            if volume.startswith("torch") else
+            np.broadcast_to(np.ones(1, np.uint8), shape))
+
+    def no_allocation(*args, **kwargs):
+        raise AssertionError("allocated before the size check")
+
+    monkeypatch.setattr(tc, "_as_device", no_allocation)
+    monkeypatch.setattr(torch, "arange", no_allocation)
+    with pytest.raises(ValueError, match=r"2\^31 - 2") as err:
+        tc.connected_components(mask, device="cpu")
+    assert str(shape) in str(err.value)
+
+
+def test_connected_components_size_limit():
+    """The largest volume that int32 labels index, and the Speck volume,
+    pass the check; one voxel more does not."""
+    tc.check_voxel_count((2 ** 31 - 2,))
+    tc.check_voxel_count((880, 880, 640))
+    with pytest.raises(ValueError):
+        tc.check_voxel_count((2 ** 31 - 1,))
+    assert tc.MAX_VOXELS == 2 ** 31 - 2
+
+
 @pytest.mark.parametrize("connectivity", [1, 3])
 def test_label_volume_and_drop_small_match_jax(connectivity):
     rng = np.random.default_rng(5)
