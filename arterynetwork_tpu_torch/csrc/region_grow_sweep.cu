@@ -51,7 +51,8 @@
 //   shared out-stage laid out like `out` (storing only nonzero words),
 //   and the strip is copied out with 16-byte stores, bytes only where a
 //   chunk straddles the strip's ends.
-// - The host sizes the grid to one wave of the blocks the card holds.
+// - The host tiles the window (strips and z-runs, see kMaxRows below) and
+//   sizes the grid to one wave of the blocks the card holds.
 
 #include <algorithm>
 #include <climits>
@@ -276,15 +277,31 @@ region_grow_sweep_kernel(const uint8_t* __restrict__ seg,
   }
 }
 
+// The tiling of a sweep over a Zw x Yw window: strips of RB rows (RB + 2
+// staged and packed) and z-runs of zc planes (zc + 2 packed and
+// dilated).  The host takes the fewest strips of equal height (no short
+// last strip) of at most two raw words per thread and kMaxRows rows, then
+// as many z-runs per strip as fill one wave of the blocks the card holds.
+// Measured on an H100 (k2_breakdown.py, every tiling of a grid): where a
+// sweep is bound by HBM (880x880x640, 20 words a row) taller strips pay,
+// fewer rows read twice (22 rows against 10: -7% on a 441x441x640 block's
+// window, -9% on the whole grid); where it is bound by latency and
+// occupancy (512x512x170 and its 258x258x170 blocks) they help until a
+// strip costs a resident block per SM (64 rows: 0.0543 ms for the whole
+// grid, 74 rows 0.0602).  A floor on the z-run (so that fewer blocks
+// pack the two warm-up planes) was slower at every shape measured.
+constexpr int kMaxRows = 64;
+
 }  // namespace
 
 // seg, bins, out: uint8 with element (z, y, x) at z*sZ + y*sY + x for the
 // region Z x Y x X (a plane of fewer than 2^31 bytes); the window
 // [z0, z1) x [y0, y1) x [x0, x1) lies in the region (the whole region
 // for a full sweep); words: int32[8] decision bits on the device; dh:
-// int32[2][256], zeroed by the caller.  Writes the window's rows of its
-// planes, whole, and nothing else of out.  Launches on `stream` and
-// returns cudaGetLastError() (0 = launched, or an empty window).
+// int32[2][256], added into.  Writes the window's rows of its planes,
+// whole (where sY > X, with zeros in the padding between two of them),
+// and nothing else of out.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched, or an empty window).
 extern "C" int region_grow_sweep(const void* seg, const void* bins,
                                  void* out, const void* words, int Z, int Y,
                                  int X, long long sZ, long long sY, int z0,
@@ -297,9 +314,12 @@ extern "C" int region_grow_sweep(const void* seg, const void* bins,
   if ((long long)Y * sY > INT_MAX) return (int)cudaErrorInvalidValue;
   const int nw = (X + 31) / 32;
   const int Yw = y1 - y0, Zw = z1 - z0;
-  // about one raw word per thread
-  const int RB = std::max(1, std::min({Yw, kThreads / nw - 2,
-                                       kStageBytes / (int)sY - 2}));
+  // the fewest strips of at most `most` rows, of equal height
+  const int most = std::max(1, std::min({Yw, 2 * kThreads / nw - 2,
+                                         kMaxRows,
+                                         kStageBytes / (int)sY - 2}));
+  const int fewest = (Yw + most - 1) / most;
+  const int RB = (Yw + fewest - 1) / fewest, strips = (Yw + RB - 1) / RB;
   // RB + 2 rows from the start of their first 16-byte chunk, and the
   // aligned words that pack32 reads past a row's last word
   const int stage = (int)(((RB + 1) * sY + 32 * nw + 64) / 16 * 16);
@@ -308,17 +328,19 @@ extern "C" int region_grow_sweep(const void* seg, const void* bins,
     const cudaError_t e = cudaFuncSetAttribute(
         region_grow_sweep_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) {
+      cudaGetLastError();           // not left for the next launch's check
+      return (int)e;
+    }
   }
-  // one wave: as many z-chunks per strip as the card holds blocks
+  // one wave: as many z-runs per strip as the card holds blocks
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, region_grow_sweep_kernel, kThreads, smem);
-  const int strips = (Yw + RB - 1) / RB;
-  const int chunks = std::min(Zw, std::max(1, per_sm * sms / strips));
-  const int zc = (Zw + chunks - 1) / chunks;
+  const int runs = std::max(1, per_sm * sms / strips);
+  const int zc = (Zw + runs - 1) / runs;
   const Sweep g{Z, Y, X, nw, RB, zc, (int)sY, stage, sZ,
                 (Z - 1) * sZ + (Y - 1) * sY + X, z0, z1, y0, y1, x0, x1};
   const dim3 grid(strips, (Zw + zc - 1) / zc);

@@ -18,9 +18,10 @@ into 8 words.
 ``csrc/region_grow_sweep.cu`` (or raise), CPU tensors run
 ``fused_sweep_plain``; ``fused_sweep_counts.launches`` counts launches.
 Both take an interior ``window`` of the region: the rule reads the whole
-region, but only window voxels may flip and be counted.  The sharded
-grower (parallel/sharded.py) sweeps each halo-padded shard over the
-voxels it owns so.
+region, but only window voxels may flip and be counted; and ``out=`` /
+``dh=``, buffers the caller owns, so that a call allocates nothing.  The
+sharded grower (parallel/sharded.py) sweeps each halo-padded shard over
+the voxels it owns so, into a second padded buffer.
 The JAX package's TPU layout (transposes, 8/128 padding, bf16 wire) is
 dropped: seg and bins are uint8 in the natural (Z, Y, X) order.
 ``fused_sweep_banded`` and ``fused_sweep_banded_dma`` keep their JAX
@@ -81,26 +82,39 @@ def _window_mask(shape, window, device):
     return m
 
 
-def fused_sweep_plain(seg, idx, sign_words, valid_yx=None, window=None):
+def fused_sweep_plain(seg, idx, sign_words, valid_yx=None, window=None,
+                      *, out=None, dh=None):
     """Plain PyTorch version of the K2 launch (same signature): dilate26
     of the valid region + decision bits + xor + bincount deltas, flips
     only inside ``window`` (default: the whole region).  Returns (seg_new
     uint8 of ``seg``'s shape: ``seg != 0`` with the flips applied, pads
     zero; int32[2, 256] counts of flips of unsegmented / segmented voxels
     by bin).  Of a windowed sweep only the window's voxels are the
-    kernel's contract; elsewhere this returns ``seg != 0``."""
+    kernel's contract; elsewhere this returns ``seg != 0``.  With
+    ``out``, seg_new is written there as the kernel writes it: the
+    window's rows of its planes (over the valid x), nothing else; with
+    ``dh``, the counts are added into it."""
     s = _region(seg, valid_yx) != 0
     b = _region(idx, valid_yx)
     flips = dilate26(s) & dilate26(~s) & (s ^ _unpack_bits(sign_words, b))
     if window is not None:
         flips &= _window_mask(s.shape, window, s.device)
-    out = torch.zeros_like(seg)
-    _region(out, valid_yx).copy_(s ^ flips)
+    new = torch.zeros_like(seg)
+    _region(new, valid_yx).copy_(s ^ flips)
     bl = b.to(torch.int64)
-    dh = torch.stack([
+    counts = torch.stack([
         torch.bincount(bl[flips & ~s], minlength=NUM_BINS),
-        torch.bincount(bl[flips & s], minlength=NUM_BINS)])
-    return out, dh.to(torch.int32)
+        torch.bincount(bl[flips & s], minlength=NUM_BINS)]).to(torch.int32)
+    if out is not None:
+        (z0, z1), (y0, y1) = (window or ((0, s.shape[0]),
+                                         (0, s.shape[1])))[:2]
+        rows = (slice(z0, z1), slice(y0, y1), slice(0, s.shape[2]))
+        out[rows] = new[rows]
+        new = out
+    if dh is not None:
+        dh += counts
+        counts = dh
+    return new, counts
 
 
 def _check(seg, idx, sign_words, valid_yx, window):
@@ -129,7 +143,36 @@ def _check(seg, idx, sign_words, valid_yx, window):
         raise ValueError("seg and idx must be contiguous")
 
 
-def fused_sweep_counts(seg, idx, sign_words, valid_yx=None, window=None):
+def _check_into(seg, out, dh):
+    if out is not None and not (
+            out.shape == seg.shape and out.dtype == torch.uint8
+            and out.device == seg.device and out.is_contiguous()):
+        raise ValueError("out must be a contiguous uint8 tensor of seg's "
+                         "shape on seg's device")
+    if out is not None and out.data_ptr() == seg.data_ptr():
+        raise ValueError("out must not be seg: a sweep reads the old state "
+                         "while it writes the new one")
+    if dh is not None and not (
+            tuple(dh.shape) == (2, NUM_BINS) and dh.dtype == torch.int32
+            and dh.device == seg.device and dh.is_contiguous()):
+        raise ValueError(f"dh must be a contiguous int32 (2, {NUM_BINS}) "
+                         f"tensor on seg's device")
+
+
+def _launch_args(seg, idx, words, valid_yx, window, out, dh):
+    """``region_grow_sweep``'s arguments for checked CUDA tensors, the
+    window given in full and ``words`` int32."""
+    Z, Y, X = seg.shape
+    (z0, z1), (y0, y1), (x0, x1) = window
+    return (seg.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            words.data_ptr(), Z, int(valid_yx[0]), int(valid_yx[1]), Y * X,
+            X, int(z0), int(z1), int(y0), int(y1), int(x0), int(x1),
+            dh.data_ptr(),
+            torch.cuda.current_stream(seg.device).cuda_stream)
+
+
+def fused_sweep_counts(seg, idx, sign_words, valid_yx=None, window=None,
+                       *, out=None, dh=None):
     """One region-grow sweep over the valid region (Z, Y0, X0) of a
     (Z, Y, X) uint8 volume -> (seg_new uint8, pads zero; dh int32[2, 256]:
     flips of unsegmented voxels (+) and of segmented voxels (-) by bin).
@@ -137,29 +180,35 @@ def fused_sweep_counts(seg, idx, sign_words, valid_yx=None, window=None):
     only window voxels flip and are counted; the rule still reads the
     whole region, and the bytes of seg_new outside the window are
     unspecified (the caller keeps the window).
+    ``out`` (uint8, seg's shape, not seg) takes seg_new in place of a new
+    buffer: the window's rows of its planes are written, over the valid
+    x, and nothing else but, where rows are padded, zeros in the padding
+    between two of them; ``dh`` (int32[2, 256]) has the counts added
+    into it.  Both are returned.
     CPU tensors take ``fused_sweep_plain``; CUDA tensors launch K2."""
     _check(seg, idx, sign_words, valid_yx, window)
+    _check_into(seg, out, dh)
     if seg.device.type == "cpu":
-        return fused_sweep_plain(seg, idx, sign_words, valid_yx, window)
+        return fused_sweep_plain(seg, idx, sign_words, valid_yx, window,
+                                 out=out, dh=dh)
     lib = _kernel_lib()
     Z, Y, X = seg.shape
     Y0, X0 = valid_yx if valid_yx is not None else (Y, X)
     full = ((0, Z), (0, Y0), (0, X0))
     if window is None or tuple(map(tuple, window)) == full:
         window = full
-        padded = (Y0, X0) != (Y, X)
-        out = torch.zeros_like(seg) if padded else torch.empty_like(seg)
-    else:                           # the kernel writes the window's rows
+        if out is None:
+            padded = (Y0, X0) != (Y, X)
+            out = torch.zeros_like(seg) if padded else torch.empty_like(seg)
+    elif out is None:               # the kernel writes the window's rows
         out = torch.empty_like(seg)
-    dh = torch.zeros((2, NUM_BINS), dtype=torch.int32, device=seg.device)
+    if dh is None:
+        dh = torch.zeros((2, NUM_BINS), dtype=torch.int32,
+                         device=seg.device)
     words = sign_words.to(torch.int32).contiguous()
-    (z0, z1), (y0, y1), (x0, x1) = window
     with torch.cuda.device(seg.device):
-        rc = lib.region_grow_sweep(
-            seg.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            words.data_ptr(), Z, int(Y0), int(X0), Y * X, X, int(z0),
-            int(z1), int(y0), int(y1), int(x0), int(x1), dh.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        rc = lib.region_grow_sweep(*_launch_args(
+            seg, idx, words, (Y0, X0), window, out, dh))
     cuda_build.check(rc, "region_grow_sweep")
     fused_sweep_counts.launches += all(hi > lo for lo, hi in window)
     return out, dh

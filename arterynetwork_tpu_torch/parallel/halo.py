@@ -15,7 +15,7 @@ no partitioner, so every halo here is explicit:
   the global shape; its leading dims are split evenly over the mesh
   axes.
 * ``halo_exchange`` pads every block along one dim with its neighbours'
-  faces (``Tensor.copy_``/``to`` across devices: a peer copy between two
+  faces (``Tensor.copy_`` across devices: a peer copy between two
   cards, a plain copy on one).  Corners travel because the dims are
   exchanged one after the other.  At the volume's faces JAX's exchange
   fills zeros; here ``fill=None`` adds no halo there, which is what the
@@ -24,8 +24,12 @@ no partitioner, so every halo here is explicit:
   need, and a number fills the face halo as JAX does.
 * ``pad_halos`` pads every block on every sharded dim (corners
   included) into a ``Padded``, which knows where each block's own voxels
-  lie; the iterated stencils (region growing, thinning) pad again after
-  each update.
+  lie.  ``refresh_halos`` brings a ``Padded``'s halo slots up to date
+  from its blocks' own voxels in place, face by face (``halo_faces``):
+  ``pad_halos`` fills a new ``Padded`` so, and an iterated stencil that
+  keeps its blocks padded (the region grower) copies only the halo after
+  each update, not every block.  One walk (``_halo_runs``) says where
+  each halo slot's planes come from, for all three.
 """
 
 from __future__ import annotations
@@ -176,6 +180,49 @@ def _along(idx, axis, j):
     return idx[:axis] + (j,) + idx[axis + 1:]
 
 
+def _extent(sizes, i, halo, fill):
+    """(slots before, slots after) block ``i`` of a row of blocks of
+    ``sizes`` planes along one dim: ``halo`` each where a ``fill`` makes
+    up the volume's faces, else as many as its neighbours hold."""
+    if fill is not None:
+        return halo, halo
+    return min(halo, sum(sizes[:i])), min(halo, sum(sizes[i + 1:]))
+
+
+def _halo_runs(sizes, i, lo, hi):
+    """Where the ``lo`` halo slots before block ``i`` of a row of blocks
+    of ``sizes`` planes and the ``hi`` slots after it come from: runs
+    (first slot in the padded block, planes, neighbour j, its first own
+    plane), nearest neighbour first, from several neighbours where one is
+    thinner than the halo.  Slots past the row's ends are in no run (they
+    keep the fill).  The one walk of this module: ``halo_exchange``,
+    ``pad_halos`` and ``halo_faces`` all take their copies from it."""
+    runs = []
+    at, j = lo, i - 1
+    while at > 0 and j >= 0:
+        take = min(at, sizes[j])
+        runs.append((at - take, take, j, sizes[j] - take))
+        at, j = at - take, j - 1
+    at, end, j = lo + sizes[i], lo + sizes[i] + hi, i + 1
+    while at < end and j < len(sizes):
+        take = min(end - at, sizes[j])
+        runs.append((at, take, j, 0))
+        at, j = at + take, j + 1
+    return runs
+
+
+def _padded_block(b, lo, hi, fill):
+    """A new tensor of ``b`` with ``lo[d]``/``hi[d]`` slots before/after it
+    on its leading dims, ``b`` copied into its place; the slots hold
+    ``fill``, or nothing yet where it is None."""
+    shape = [n + int(l) + int(h) for n, l, h in zip(b.shape, lo, hi)] \
+        + list(b.shape[len(lo):])
+    t = b.new_empty(shape) if fill is None else b.new_full(shape, fill)
+    t[tuple(slice(int(l), int(l) + n) for l, n in zip(lo, b.shape))] \
+        .copy_(b)
+    return t
+
+
 def halo_exchange(blocks, axis: int, halo: int = 1, fill=None):
     """Pad every block of the grid ``blocks`` along ``axis`` with up to
     ``halo`` planes from its neighbours (from several blocks when one is
@@ -191,34 +238,16 @@ def halo_exchange(blocks, axis: int, halo: int = 1, fill=None):
     hi = np.zeros(grid, dtype=np.int64)
     for idx in np.ndindex(grid):
         b = blocks[idx]
-        parts_lo, parts_hi = [], []
-        need, j = halo, idx[axis] - 1
-        while need and j >= 0:
-            nb = blocks[_along(idx, axis, j)]
-            take = min(need, nb.shape[axis])
-            parts_lo.insert(0, nb.narrow(axis, nb.shape[axis] - take,
-                                         take).to(b.device))
-            need, j = need - take, j - 1
-        if need and fill is not None:
-            parts_lo.insert(0, _planes(b, axis, need, fill))
-        need, j = halo, idx[axis] + 1
-        while need and j < grid[axis]:
-            nb = blocks[_along(idx, axis, j)]
-            take = min(need, nb.shape[axis])
-            parts_hi.append(nb.narrow(axis, 0, take).to(b.device))
-            need, j = need - take, j + 1
-        if need and fill is not None:
-            parts_hi.append(_planes(b, axis, need, fill))
-        lo[idx] = sum(p.shape[axis] for p in parts_lo)
-        hi[idx] = sum(p.shape[axis] for p in parts_hi)
-        out[idx] = torch.cat(parts_lo + [b] + parts_hi, dim=axis)
+        sizes = [blocks[_along(idx, axis, j)].shape[axis]
+                 for j in range(grid[axis])]
+        l, h = _extent(sizes, idx[axis], halo, fill)
+        lo[idx], hi[idx] = l, h
+        t = _padded_block(b, [0] * axis + [l], [0] * axis + [h], fill)
+        for at, n, j, src in _halo_runs(sizes, idx[axis], l, h):
+            t.narrow(axis, at, n).copy_(
+                blocks[_along(idx, axis, j)].narrow(axis, src, n))
+        out[idx] = t
     return out, lo, hi
-
-
-def _planes(b, axis, n, fill):
-    shape = list(b.shape)
-    shape[axis] = n
-    return b.new_full(shape, fill)
 
 
 @dataclasses.dataclass
@@ -257,18 +286,67 @@ class Padded:
 
 def pad_halos(vol: ShardedVolume, halo: int, fill=None) -> Padded:
     """Every block of ``vol`` with ``halo`` planes of its neighbours on
-    each sharded dim, corners included (``halo_exchange`` dim after
-    dim); ``fill`` as there."""
-    blocks = vol.blocks
+    each sharded dim, corners included (as ``halo_exchange`` dim after
+    dim gives); ``fill`` as there.  Each padded block is made once, its
+    own voxels copied in, and ``refresh_halos`` fills its halo slots."""
     k = len(vol.grid)
     lo = np.zeros(vol.grid + (k,), dtype=np.int64)
     hi = np.zeros(vol.grid + (k,), dtype=np.int64)
-    for d in range(k):
-        blocks, l, h = halo_exchange(blocks, d, halo, fill)
-        lo[..., d], hi[..., d] = l, h
+    blocks = np.empty(vol.grid, dtype=object)
     for idx in np.ndindex(vol.grid):
-        blocks[idx] = blocks[idx].contiguous()
-    return Padded(blocks, lo, hi, vol)
+        for d in range(k):
+            sizes = [vol.blocks[_along(idx, d, j)].shape[d]
+                     for j in range(vol.grid[d])]
+            lo[idx][d], hi[idx][d] = _extent(sizes, idx[d], halo, fill)
+        blocks[idx] = _padded_block(vol.blocks[idx], lo[idx], hi[idx], fill)
+    pad = Padded(blocks, lo, hi, vol)
+    refresh_halos(pad)
+    return pad
+
+
+def halo_faces(pad: Padded):
+    """The copies that bring ``pad``'s halo slots up to date from its
+    blocks' own voxels, as (halo slots, neighbour's voxels) pairs of
+    views of the padded tensors, in the order to make them: dim after
+    dim, so that a dim's copies span the halo slots of the dims before
+    it and corners travel.  The views live as long as ``pad``'s tensors:
+    a caller that keeps them computes this once."""
+    grid = pad.source.grid
+    faces = []
+    for d in range(len(grid)):
+        for idx in np.ndindex(grid):
+            t, box = pad.blocks[idx], pad.box(idx)
+            sizes = [pad.source.blocks[_along(idx, d, j)].shape[d]
+                     for j in range(grid[d])]
+
+            def span(start, n):
+                # dims before d: whole (their halos are fresh); after: own
+                return tuple(slice(None) if e < d else
+                             slice(start, start + n) if e == d else box[e]
+                             for e in range(len(grid)))
+
+            for at, n, j, src in _halo_runs(sizes, idx[d],
+                                            int(pad.lo[idx][d]),
+                                            int(pad.hi[idx][d])):
+                nb = _along(idx, d, j)
+                faces.append((t[span(at, n)], pad.blocks[nb][
+                    span(int(pad.lo[nb][d]) + src, n)]))
+    return faces
+
+
+def refresh_halos(pad: Padded, faces=None) -> int:
+    """Copy into every block's halo slots of ``pad`` its neighbours' own
+    voxels, in place, from the same padded tensors: afterwards each block
+    holds the volume's voxels around its own as far as its halo slots
+    reach, corners included (the face slots of a ``fill`` stay as they
+    are).  One ``Tensor.copy_`` per face
+    of ``faces`` (default ``halo_faces(pad)``; a peer copy between two
+    cards).  Returns the number of elements copied."""
+    n = 0
+    for dst, src in (halo_faces(pad) if faces is None else faces):
+        dst.copy_(src)
+        n += dst.numel()
+    return n
 
 
 def sharded_dilate26(mask, mesh: VolumeMesh, axes=("sx", "sy")):

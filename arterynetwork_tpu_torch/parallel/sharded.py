@@ -17,12 +17,14 @@ quantity that spans the volume reduced across blocks before it is used:
   result is bit-equal to ``ops/vesselness.frangi_vesselness``.
 * ``edt_squared``: halo ``band`` with corners; bit-equal to
   ``ops/edt.edt_squared``.
-* ``region_grow``: the fused grower of ops/region_grow_fused.py, per
-  iteration a halo-1 exchange of the segmentation, K2 on each padded
-  block's interior window (the halo is read, never flipped or counted),
-  the
-  blocks' +/- histograms summed on the first block's device and one host
-  read of the stop code.  The quantisation's min/max and the region
+* ``region_grow``: the fused grower of ops/region_grow_fused.py on two
+  halo-padded copies of the segmentation, made once: per iteration K2
+  sweeps each block of one copy over its interior window (the halo is
+  read, never flipped or counted) into the other copy, whose halo faces
+  alone are then refreshed from its neighbours (``refresh_halos``), and
+  the two swap; the blocks' +/- histograms go into one preallocated
+  buffer per device, summed on the first block's device, and the host
+  reads the stop code once.  The quantisation's min/max and the region
   histograms (K6b per block, exact int32 counts) are taken over all
   blocks.  Equal to the single-device grower: mask, iterations, count,
   stop reason.
@@ -56,7 +58,8 @@ from ..ops.thinning import (_device_lut, _subfield_deletions,
                             _subfield_index)
 from ..ops.vesselness import (_norm, _sorted_eigvals, _tubularity,
                               hessian_at_scale)
-from .halo import ShardedVolume, pad_halos
+from .halo import (Padded, ShardedVolume, halo_faces, pad_halos,
+                   refresh_halos)
 
 
 def _first(vol: ShardedVolume):
@@ -165,21 +168,43 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
     count = _reduce([torch.sum(seg.blocks[i], dtype=torch.int32)
                      for i in idxs], torch.sum, dev0).to(torch.int32)
 
+    # two padded copies, made once: each sweep reads one and writes the
+    # other's windows; the dh slots of the blocks on each device are
+    # rows of one buffer, zeroed once per sweep
+    src = pad_halos(seg, 1)
+    dst = Padded(np.empty(seg.grid, dtype=object), src.lo, src.hi,
+                 src.source)
+    by_dev = {}
+    for i in idxs:
+        dst.blocks[i] = src.blocks[i].clone()
+        by_dev.setdefault(src.blocks[i].device, []).append(i)
+    dh_buf = {d: torch.zeros((len(ix), 2, NUM_BINS), dtype=torch.int32,
+                             device=d) for d, ix in by_dev.items()}
+    dh_of = {i: dh_buf[d][k] for d, ix in by_dev.items()
+             for k, i in enumerate(ix)}
+    windows = {i: src.window(i) for i in idxs}
+    src_faces, dst_faces = halo_faces(src), halo_faces(dst)
+
     it = torch.zeros((), dtype=torch.int32, device=dev0)
     stop = torch.where(count >= max_segment_size, 1, -1).to(torch.int32)
     while int(stop) < 0:
         inner_f = inner.to(torch.float32)
         words = pack_sign_words(_decision_table(K, inner_f,
                                                 hist_all - inner_f))
-        dh = torch.zeros((2, NUM_BINS), dtype=torch.int32, device=dev0)
-        pad = pad_halos(seg, 1)
+        words_on = {d: words.to(d) for d in dh_buf}
+        for buf in dh_buf.values():
+            buf.zero_()
         for i in idxs:
-            t = pad.blocks[i]
-            pad.blocks[i], dh_i = fused_sweep_counts(
-                t, bins_pad.blocks[i], words.to(t.device),
-                window=pad.window(i))
-            dh += dh_i.to(dev0)
-        seg = pad.crop()
+            t = src.blocks[i]
+            fused_sweep_counts(t, bins_pad.blocks[i], words_on[t.device],
+                               window=windows[i], out=dst.blocks[i],
+                               dh=dh_of[i])
+        refresh_halos(dst, dst_faces)
+        src, dst = dst, src
+        src_faces, dst_faces = dst_faces, src_faces
+        parts = [buf.sum(dim=0) for buf in dh_buf.values()]
+        dh = parts[0] if len(parts) == 1 else _reduce(parts, torch.sum,
+                                                      dev0)
         n_pos, n_neg = dh.sum(dim=1, dtype=torch.int32)
         converged = (n_pos + n_neg) == 0
         inner = inner + dh[0] - dh[1]
@@ -187,7 +212,7 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
         it = it + (~converged).to(torch.int32)
         stop = _stop_code(converged, count >= max_segment_size, it,
                           iter_max)
-    return RegionGrowResult(segmented_map=seg.map(lambda b: b != 0),
+    return RegionGrowResult(segmented_map=src.crop().map(lambda b: b != 0),
                             active_map=None, iterations=it,
                             segmented_count=count, stop_reason=stop)
 

@@ -28,8 +28,10 @@ Phases, each printing its own lines:
   6. sweep_cases — K2 (through fused_sweep_counts and the padded entries
                fused_sweep, fused_sweep_banded, fused_sweep_banded_dma;
                with interior windows of one plane, one row, one voxel,
-               touching one face, x cuts, and each halo-padded block of
-               a 2x2 mesh at 512x512x170) and K5 against their plain
+               touching one face, x cuts, heights that the launcher
+               splits into strips of unequal height, and each
+               halo-padded block of a 2x2 mesh at 512x512x170) and K5
+               against their plain
                versions on hard inputs:
                Bernoulli(0.5) states with random decision words, all-
                and none-segmented volumes, ragged shapes, padded calls,
@@ -47,7 +49,9 @@ Phases, each printing its own lines:
                int32: equal outputs; device and call
                times of kernel, plain version and, where one PyTorch call
                computes the same function, that call; each kernel's bound;
-               K5's fixed cost (no tile active);
+               K2's window on a 258x258x170 block through the wrapper
+               into buffers made once, timed as bare launches (the ctypes
+               call alone); K5's fixed cost (no tile active);
   8. region_grow_512 — bench.py's bench_region_grow workload through
                region_grow "auto" (K2 + K6b), "xla" (K6b + K7) and
                region_grow_frontier (K5 + K6b), each also with the plain
@@ -108,8 +112,11 @@ Phases, each printing its own lines:
                global switch), (e) K2 4 times per sweep (its interior
                window) and K6b 8 times, (f) K6b on each padded block
                (int32, own-box and seed masks) equal to its plain
-               version; halo bytes per iteration, a traced grow's idle
-               share, peak device memory.
+               version; halo bytes per iteration, the bytes the grower's
+               halo refresh copies per sweep (and those re-padding every
+               block would write), the device bytes the grower
+               allocates per sweep, a traced grow's idle share, peak
+               device memory.
      dryrun_multichip — flagship.dryrun_multichip(4) and (8) on the card.
      Speck scale, 880x880x640 (BASELINE.md config 5), each phase's data
      made on the host from seeds and timed apart, each phase's tensors
@@ -130,10 +137,12 @@ Phases, each printing its own lines:
                frangi_vesselness_chunked (sigmas 1, 2, 3; 110-row slabs):
                24 K1 launches, within K1's bound of its twin;
      speck_kernels — K1 on a smoothed (68, 880, 640) slab, K6b, K6a, K2,
-               K5 and K7 (sign, f32 and f64 values) on the Speck tube's
+               K3/K4 (padded to (880, 896, 640)), K5 and K7 (sign, f32
+               and f64 values) on the Speck tube's
                state after 20 iterations, K2 on each halo-padded block of
                a 2x2 mesh of it (the block with the most boundary
-               voxels timed), then n = 2^31 + 33 uint8 bins (K6b on
+               voxels timed as bare launches), then n = 2^31 + 33 uint8
+               bins (K6b on
                random bins and on one bin holding them all, K7 sign and
                f32 values):
                each against its plain version, exact but K1, with ms,
@@ -174,8 +183,9 @@ Phases, each printing its own lines:
 A kernel's "ms" is its own kernels' device time per call from a
 torch.profiler trace that holds all of their events (else, after three
 traces, its "call_ms": "timed_by" says which; the plain version's and
-the library call's: all their device events), "call_ms" the CUDA-event
-time of one call, host wrapper included; "bound_ms" the larger of the bytes this run's data
+the library call's: all their device events; K2's window: bare launches, a
+trace of them, else CUDA events around 20 of them), "call_ms" the
+CUDA-event time of one call, host wrapper included; "bound_ms" the larger of the bytes this run's data
 needs over 3.35 TB/s and the f32 operations over 67 TFLOP/s.  Each path
 is driven with every launch count set to 0 just before it and read just
 after.  Then the launches of each kernel on each path, one JSON
@@ -294,6 +304,28 @@ def bound(nbytes, ops=0):
     to move ``nbytes`` through HBM and do ``ops`` f32 operations."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def k2_launcher(seg, bins, words, window, lib=None):
+    """(a function that launches K2 once over ``window`` of the CUDA
+    tensors into preallocated buffers, out, dh): the ctypes call alone,
+    with no checks and no allocation, for bare-launch timing; dh adds up
+    over calls.  ``lib``: another build of csrc/region_grow_sweep.cu."""
+    import torch
+
+    fused = _ops("region_grow_fused")
+    fn = (lib or fused._kernel_lib()).region_grow_sweep
+    out = torch.empty_like(seg)
+    dh = torch.zeros((2, 256), dtype=torch.int32, device=seg.device)
+    args = fused._launch_args(seg, bins, words, tuple(seg.shape[1:]),
+                              window, out, dh)
+
+    def launch():
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"region_grow_sweep: CUDA error {rc}")
+
+    return launch, out, dh
 
 
 def timing(k, p, nbytes, ops=0, lib=None):
@@ -842,13 +874,52 @@ def _in_window(out, window):
     return out[0][tuple(slice(lo, hi) for lo, hi in window)], out[1]
 
 
+def _window_case(seg_b, bins_b, words, win, n_bnd_win):
+    """K2's interior-window entry on one halo-padded block as a
+    ``_run_cases`` case: the wrapper writing into buffers made once (the
+    sharded grower's call, which allocates nothing), against the plain
+    version; the bound counts the block read and written once."""
+    import torch
+
+    fused = _ops("region_grow_fused")
+    out = torch.empty_like(seg_b)
+    dh = torch.zeros((2, 256), dtype=torch.int32, device=seg_b.device)
+    return (
+        lambda: _in_window(fused.fused_sweep_counts(
+            seg_b, bins_b, words, window=win, out=out, dh=dh.zero_()), win),
+        lambda: _in_window(fused.fused_sweep_plain(
+            seg_b, bins_b, words, window=win), win),
+        2 * seg_b.numel() + n_bnd_win + 2 * 256 * 4, None)
+
+
+def _time_window_bare(phase, r, seg_b, bins_b, words, win):
+    """Times the window case as bare launches (the ctypes call alone):
+    CUDA events around 20 back-to-back launches ("bare_ms") and a trace
+    of them ("bare_trace_ms", None if every trace dropped events); the
+    record's "ms" becomes the trace where it held every event, else the
+    events, so that no window time includes the Python wrapper."""
+    from kernel_probe import events_ms
+
+    launch, _, _ = k2_launcher(seg_b, bins_b, words, win)
+    r["bare_ms"] = events_ms(launch)
+    r["bare_trace_ms"] = device_ms(launch, own=True)[0]
+    r["ms"] = r["bare_trace_ms"] or r["bare_ms"]
+    r["timed_by"] = ("bare launches, trace" if r["bare_trace_ms"]
+                     else "bare launches, events")
+    log(phase, f"region_grow_sweep window, bare launches: events "
+        f"{r['bare_ms']:.4f} ms, trace {_ms(r['bare_trace_ms'])} ms; "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound")
+
+
 def _window_cases(fused, state, same):
     """K2 with an interior window (the sharded grower's call) against its
     plain version: windows of one plane, one row and one voxel, windows
-    touching one face of the block only, an x cut, a padded region, an
+    touching one face of the block only, an x cut, heights split into
+    strips of unequal height (into caller buffers), a padded region, an
     unaligned view, and each halo-padded block of a 2x2 mesh at the
     path's shape, whose interiors reassemble the whole volume's sweep and
     whose deltas sum to its."""
+    import torch
     import torch.nn.functional as F
 
     n = 0
@@ -869,6 +940,21 @@ def _window_cases(fused, state, same):
                 window), _in_window(fused.fused_sweep_plain(
                     seg, bins, words, window=window), window))
             n += 1
+    # heights that the launcher splits into strips of unequal height: 257
+    # rows of 170 (5 strips of 52, the last 49), 253 (4 of 64, the last
+    # 61), 33 rows of 513 (2 of 17, the last 16); into caller buffers
+    for shape, window in (((20, 258, 170), ((1, 19), (0, 257), (0, 170))),
+                          ((20, 258, 170), ((1, 19), (2, 255), (0, 170))),
+                          ((20, 33, 513), ((0, 20), (0, 33), (0, 513)))):
+        seg, bins, words = state(shape)
+        out = torch.empty_like(seg)
+        dh = torch.zeros((2, 256), dtype=torch.int32, device=seg.device)
+        same(f"K2 window {window} {shape} into caller buffers",
+             _in_window(fused.fused_sweep_counts(
+                 seg, bins, words, window=window, out=out, dh=dh), window),
+             _in_window(fused.fused_sweep_plain(seg, bins, words,
+                                                window=window), window))
+        n += 1
     seg, bins, words = state((5, 17, 33))
     pad = (0, 95, 0, 15)
     args = (F.pad(seg, pad), F.pad(bins, pad), words, (17, 33))
@@ -1078,25 +1164,20 @@ def phase_region_grow_kernels(vol, seed):
     byte, but bins only where a mask is set (histograms) or at boundary
     voxels (sweeps), as the kernels read them."""
     import torch
-    import torch.nn.functional as F
 
     P = "region_grow_kernels"
-    fused, front = _ops("region_grow_fused"), _ops("region_grow_frontier")
+    front = _ops("region_grow_frontier")
     st = _grow_state(P, vol, seed, 10 ** 6)
     cases = _state_cases(st)
+    cases.update(_banded_cases(st))
     seg8, bins, words = st["seg8"], st["bins"], st["words"]
-    Z, Y, X = seg8.shape            # pad X to 256 lanes, Y to whole
-    pad = (0, 256 - X, 0, max(-(-Y // 128), 2) * 128 - Y)    # 128-bands
-    seg_p, bins_p = F.pad(seg8, pad), F.pad(bins, pad)
-    valid = tuple(seg8.shape[1:])
-    sweep_bytes = cases["region_grow_sweep"][2]
+    X = seg8.shape[2]
     # a block of sharded_512's grower: 256 x 256 own rows of the state
     # around the tube with a one-voxel halo on each side, swept over its
     # window (the kernel reads the block, writes and counts the window)
     blk = (slice(127, 385), slice(127, 385))
     seg_b, bins_b = seg8[blk].contiguous(), bins[blk].contiguous()
     win = ((1, 257), (1, 257), (0, X))
-    n_b = seg_b.numel()
     n_bnd_win = int(st["bnd"][128:384, 128:384].sum())
     log(P, f"windowed K2 block {tuple(seg_b.shape)}, window {win}: "
         f"{n_bnd_win} boundary voxels in the window")
@@ -1119,23 +1200,11 @@ def phase_region_grow_kernels(vol, seed):
             lambda b=b, t=t: (lk.table_lookup_plain(b, t),),
             n * (b.element_size() + t.element_size()) + 256
             * t.element_size(), lambda b=b, t=t: (t[b.long()],))
-    cases.update({
-        "region_grow_sweep window": (
-            lambda: _in_window(fused.fused_sweep_counts(
-                seg_b, bins_b, words, window=win), win),
-            lambda: _in_window(fused.fused_sweep_plain(
-                seg_b, bins_b, words, window=win), win),
-            2 * n_b + n_bnd_win + 2 * 256 * 4, None),
-        "region_grow_sweep banded (K3)": (
-            lambda: fused.fused_sweep_banded(seg_p, bins_p, words, valid),
-            lambda: fused.fused_sweep(seg_p, bins_p, words, valid),
-            sweep_bytes, None),
-        "region_grow_sweep banded_dma (K4)": (
-            lambda: fused.fused_sweep_banded_dma(seg_p, bins_p, words,
-                                                 valid),
-            lambda: fused.fused_sweep(seg_p, bins_p, words, valid),
-            sweep_bytes, None)})
+    cases["region_grow_sweep window"] = _window_case(seg_b, bins_b, words,
+                                                     win, n_bnd_win)
     rec = _run_cases(P, cases)
+    _time_window_bare(P, rec["region_grow_sweep window"], seg_b, bins_b,
+                      words, win)
     # K5's floor: both kernels launched, no tile active
     none = torch.zeros(1, dtype=torch.int32, device=seg8.device)
     seg0 = seg8.clone()
@@ -2029,7 +2098,10 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     sharded_512, the Speck one for speck_sharded) over a 2x2 mesh of
     cuda:0 slots (the four blocks run one after another on the one
     card), at its defaults: one warm-up and ``timed`` timed runs with
-    per-stage times; then the gates: (a) the vesselness bit-equal to
+    per-stage times; the bytes the grower's halo refresh copies per sweep
+    beside those re-padding every block would write, and the device
+    bytes the grower allocates per sweep (grows of 1 and of all sweeps);
+    then the gates: (a) the vesselness bit-equal to
     frangi_vesselness of the whole volume, (b) mask and skeleton equal to
     the single-device composition on the card (tests/test_parallel.py's),
     (c) at least one segment, (d) the dp-split rows of the timestep batch
@@ -2062,6 +2134,7 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     from arterynetwork_tpu_torch.parallel import sharded
     from arterynetwork_tpu_torch.parallel.halo import (make_volume_mesh,
                                                        pad_halos,
+                                                       refresh_halos,
                                                        shard_volume)
     from arterynetwork_tpu_torch.parallel.distributed import solve_batch_dp
     from arterynetwork_tpu_torch.parallel.pipeline_sharded import (
@@ -2179,12 +2252,34 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
               and counts["masked_histogram1"] == 8)
 
     # halo bytes of one exchange (the grower's: the uint8 segmentation
-    # with a halo of 1)
+    # with a halo of 1); the bytes the grower copies per sweep to bring
+    # its padded blocks up to date with refresh_halos (faces only), and
+    # those re-padding every block with one torch.cat per sharded dim
+    # would write (each cat the block padded so far); the device
+    # bytes allocated per sweep, from a grow of one sweep and one of all
     seeds_sh = shard_volume(seeds, mesh)
     pad = pad_halos(seeds_sh.map(lambda b: b.to(torch.uint8)), 1)
     halo_bytes = sum(pad.blocks[i].numel() - seeds_sh.blocks[i].numel()
                      for i in seeds_sh.indices())
+    refresh_bytes = refresh_halos(pad)
+    repad_bytes = sum(pad.blocks[i].shape[0] * seeds_sh.blocks[i][0].numel()
+                      + pad.blocks[i].numel() for i in seeds_sh.indices())
     del pad
+    v_sh = shard_volume(v1, mesh)
+    alloc = []
+    for n_it in (1, SHARDED_ITERS):
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+        g = sharded.region_grow(v_sh, seeds_sh, max_segment_size=10 ** 7,
+                                iter_max=n_it)
+        n_sw = int(g.iterations) + (int(g.stop_reason) == 0)
+        torch.cuda.synchronize()
+        alloc.append((torch.cuda.memory_stats()[
+            "allocated_bytes.all.allocated"] - a0, n_sw))
+        del g
+    del v_sh
+    alloc_per_sweep = (alloc[1][0] - alloc[0][0]) / max(
+        alloc[1][1] - alloc[0][1], 1)
     out = {"phase": phase, "mesh": "2x2 of cuda:0",
            "median_s": statistics.median(totals), "runs_s": totals,
            "stage_medians_s": medians, "single_device_stages_s": single,
@@ -2192,6 +2287,9 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
            "segments": n_seg, "mask_voxels": int(res["mask"].sum()),
            "skeleton_voxels": int(res["skeleton"].sum()),
            "halo_bytes_per_iteration": halo_bytes,
+           "refresh_bytes_per_iteration": refresh_bytes,
+           "repad_bytes_per_iteration": repad_bytes,
+           "grow_allocated_bytes_per_sweep": alloc_per_sweep,
            "host_reads_per_iteration": 1, "peak_mib": max(peaks),
            "single_vesselness_peak_mib": peaks_v,
            "pressure_bit_equal": bit_equal,
@@ -2229,7 +2327,11 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
         f", K6b {counts['masked_histogram1']}, K1 "
         f"{counts['frangi_response']}); {n_seg} segments, mask "
         f"{out['mask_voxels']} voxels, skeleton {out['skeleton_voxels']}; "
-        f"halo {halo_bytes} bytes per iteration, 1 host read per "
+        f"halo {halo_bytes} bytes per iteration, copied by the halo "
+        f"refresh {refresh_bytes} bytes per iteration (re-padding every "
+        f"block would write {repad_bytes}); device bytes allocated per "
+        f"sweep {alloc_per_sweep:.0f} (grows of {alloc[0][1]} and "
+        f"{alloc[1][1]} sweeps); 1 host read per "
         f"iteration; {traced}peak device memory {max(peaks):.0f} MiB "
         f"(the whole-volume vesselness {peaks_v}); "
         f"the pipeline's pressures {out['pipeline_pressures']}; dp rows "
@@ -2558,12 +2660,40 @@ def phase_speck_region_grow(vol, seed):
     return launches, counts["frangi_response"]
 
 
+def _banded_cases(st):
+    """K3 and K4 (the banded entries, on K2's kernel) on a ``_grow_state``
+    padded as their JAX contract pads it: y to whole 128-row bands (at
+    least two), x to 128 lanes; against the plain sweep.  The bound
+    counts the valid region read, the padded output written (its pads
+    zero) and the bins of the boundary voxels."""
+    import torch.nn.functional as F
+
+    fused = _ops("region_grow_fused")
+    seg8, bins, words = st["seg8"], st["bins"], st["words"]
+    Z, Y, X = seg8.shape
+    pad = (0, -(-X // 128) * 128 - X, 0, max(-(-Y // 128), 2) * 128 - Y)
+    seg_p, bins_p = F.pad(seg8, pad), F.pad(bins, pad)
+    valid = (Y, X)
+    nbytes = seg8.numel() + seg_p.numel() + int(st["bnd"].sum()) + 2048
+    return {
+        "region_grow_sweep banded (K3)": (
+            lambda: fused.fused_sweep_banded(seg_p, bins_p, words, valid),
+            lambda: fused.fused_sweep(seg_p, bins_p, words, valid), nbytes,
+            None),
+        "region_grow_sweep banded_dma (K4)": (
+            lambda: fused.fused_sweep_banded_dma(seg_p, bins_p, words,
+                                                 valid),
+            lambda: fused.fused_sweep(seg_p, bins_p, words, valid), nbytes,
+            None)}
+
+
 def phase_speck_kernels(raw, vol, seed):
     """Each kernel against its plain version on the card at Speck shapes:
     K1 on a smoothed (68, 880, 640) slab of the Speck raw volume per
     scale (within 1e-5); K6b, K6a, K2, K5, K7 sign, f32 and f64 values
     on the Speck tube's state after 20 iterations (4.96e8 voxels; 3.96e9
-    output bytes in f64); K2 on each halo-padded block of a 2x2 mesh of
+    output bytes in f64), K3 and K4 on it padded to their contract's
+    (880, 896, 640); K2 on each halo-padded block of a 2x2 mesh of
     that state, and timed on the one with the most boundary voxels; then
     n = 2^31 + 33 uint8 bins: K6b on random bins under a random mask and
     on one bin under an all-true mask (a count past 2^31, int64), K7 sign
@@ -2580,6 +2710,7 @@ def phase_speck_kernels(raw, vol, seed):
     cases = _state_cases(st)
     bins = st["bins"]
     rec.update(_run_cases(P, cases))
+    rec.update(_run_cases(P, _banded_cases(st)))
 
     def same(label, out, ref):
         torch.cuda.synchronize()
@@ -2593,17 +2724,15 @@ def phase_speck_kernels(raw, vol, seed):
         f"state: equal to the plain version, reassembled equal to the "
         f"whole sweep")
     # one of those blocks timed, as the 512 phase times its window case
-    fused, words = _ops("region_grow_fused"), st["words"]
+    words = st["words"]
     idx, seg_b, bins_b, win, n_bnd_win = _mesh_block(st["seg8"], bins,
                                                      st["bnd"])
     log(P, f"windowed K2 on block {idx} {tuple(seg_b.shape)}, window "
         f"{win}: {n_bnd_win} boundary voxels in the window")
-    rec.update(_run_cases(P, {"region_grow_sweep window": (
-        lambda: _in_window(fused.fused_sweep_counts(
-            seg_b, bins_b, words, window=win), win),
-        lambda: _in_window(fused.fused_sweep_plain(
-            seg_b, bins_b, words, window=win), win),
-        2 * seg_b.numel() + n_bnd_win + 2 * 256 * 4, None)}))
+    rec.update(_run_cases(P, {"region_grow_sweep window": _window_case(
+        seg_b, bins_b, words, win, n_bnd_win)}))
+    _time_window_bare(P, rec["region_grow_sweep window"], seg_b, bins_b,
+                      words, win)
     del st, cases, bins, seg_b, bins_b
     _fresh()
 

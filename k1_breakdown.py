@@ -42,6 +42,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from kernel_probe import (build_all, events_ms, ptxas_lines,  # noqa: E402
+                          variants)
+
 PROBE_SRC = r"""
 #include <cuda_runtime.h>
 
@@ -163,12 +166,6 @@ extern "C" int probe_launch(int variant, const float* sm, int Zs, int Y,
 VARIANTS = ("first", "loads", "arith")
 
 
-def ptxas_lines(log):
-    return [ln.strip() for ln in log.splitlines()
-            if "Compiling entry" in ln or "registers" in ln
-            or "spill" in ln or "stack frame" in ln]
-
-
 def sass_counts(so):
     """Static SASS instruction count per kernel of a library, or {}."""
     from arterynetwork_tpu_torch.ops import cuda_build
@@ -221,86 +218,37 @@ PORT_VARIANTS = {
 }
 
 
-def nvcc_build(name, text):
-    """(ctypes library, ptxas lines, path) of CUDA source ``text`` built
-    like the port's kernels into build/probe/<name>.so."""
-    import ctypes
-
-    from arterynetwork_tpu_torch.ops import cuda_build
-
-    out_dir = os.path.join(ROOT, "build", "probe")
-    os.makedirs(out_dir, exist_ok=True)
-    src, so = (os.path.join(out_dir, f"{name}.cu"),
-               os.path.join(out_dir, f"{name}.so"))
-    with open(src, "w") as f:
-        f.write(text)
-    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-                           cuda_build.CSRC, "-o", so, src],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"{name} build failed:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(so), ptxas_lines(proc.stdout + proc.stderr), so
-
-
-def build_probe():
-    import ctypes
-
-    lib, log, so = nvcc_build("k1_probe", PROBE_SRC)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.probe_launch.restype = I
-    lib.probe_launch.argtypes = [I, P, I, I, I, I, I, P, I, P, F, F, F, F, I,
-                                 P]
-    return lib, log, so
-
-
-def build_port_variants():
-    """{name: library} of PORT_VARIANTS that apply to the port's source."""
+def build():
+    """(probe library, its ptxas lines, its .so path, {name: library} of
+    the PORT_VARIANTS that apply to the port's source), every nvcc
+    started together."""
     import ctypes
 
     from arterynetwork_tpu_torch.ops import cuda_build
 
     with open(os.path.join(cuda_build.CSRC, "frangi_response.cu")) as f:
-        text = f.read()
+        sources = variants(f.read(), PORT_VARIANTS)
+    if "port_runs" in sources:
+        sources["port_runs"] += RUNS_ENTRY
+    libs = build_all({"k1_probe": PROBE_SRC, **sources}, "probe")
+    if "k1_probe" not in libs:
+        raise SystemExit("k1_breakdown: the probe did not build")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib, log, so = libs.pop("k1_probe")
+    lib.probe_launch.restype = I
+    lib.probe_launch.argtypes = [I, P, I, I, I, I, I, P, I, P, F, F, F, F, I,
+                                 P]
     out = {}
-    for name, subs in PORT_VARIANTS.items():
-        v = text
-        for old, new in zip(subs[::2], subs[1::2]):
-            if old not in v:
-                print(f"{name}: not in the port's source, skipped",
-                      flush=True)
-                break
-            v = v.replace(old, new, 1)
-        else:
-            if name == "port_runs":
-                v += RUNS_ENTRY
-            lib, log, _ = nvcc_build(name, v)
-            print(f"ptxas {name}: {'; '.join(log)}", flush=True)
-            for fn, extra in (("frangi_response_max", []),
-                              ("frangi_response_max_runs", [I])):
-                if hasattr(lib, fn):
-                    getattr(lib, fn).restype = I
-                    getattr(lib, fn).argtypes = [P, I, I, I, I, I, *extra, P,
-                                                 I, P, F, F, F, F, I, P]
-            out[name] = lib
-    return out
-
-
-def events_ms(fn, n=100):
-    """Device ms per call: CUDA events around ``n`` back-to-back calls,
-    after a warm-up of 10."""
-    import torch
-
-    for _ in range(10):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
+    for name, (vlib, vlog, _) in libs.items():
+        print(f"ptxas {name}: {'; '.join(vlog)}", flush=True)
+        for fn, extra in (("frangi_response_max", []),
+                          ("frangi_response_max_runs", [I])):
+            if hasattr(vlib, fn):
+                getattr(vlib, fn).restype = I
+                getattr(vlib, fn).argtypes = [P, I, I, I, I, I, *extra, P, I,
+                                              P, F, F, F, F, I, P]
+        out[name] = vlib
+    return lib, log, so, out
 
 
 def main():
@@ -323,8 +271,7 @@ def main():
     print(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
           f"{smi}", flush=True)
     k1_log = cuda_build.build(("frangi_response",))["frangi_response"][1]
-    lib, probe_log, probe_so = build_probe()
-    variants = build_port_variants()
+    lib, probe_log, probe_so, port_variants = build()
     res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "ptxas": {"port_k1": ptxas_lines(k1_log), "probe": probe_log},
            "sass_instructions": {
@@ -356,18 +303,18 @@ def main():
         def port():
             frangi_response_max_(best, 0, sm, halo, chunk, sigma, g)
 
-        row = {"port_k1": events_ms(port),
+        row = {"port_k1": events_ms(port, n=100, warmup=10),
                "port_k1_profiler": device_ms(port, own=True)[0]}
         for i, name in enumerate(VARIANTS):
             def launch(i=i):
                 cuda_build.check(lib.probe_launch(i, *args), "probe")
-            row[name] = events_ms(launch)
-        for name, vlib in variants.items():
+            row[name] = events_ms(launch, n=100, warmup=10)
+        for name, vlib in port_variants.items():
             if name == "port_runs":
                 continue
             def launch(fn=vlib.frangi_response_max):
                 cuda_build.check(fn(*args), name)
-            row[name] = events_ms(launch)
+            row[name] = events_ms(launch, n=100, warmup=10)
         res["ms"][sigma] = row
         hs = _hessian_from_smoothed(sm[halo - 1:halo + chunk + 1], sigma)
         qm = (((hs[0] + hs[1]) + hs[2]) * third)[1:-1]
@@ -377,8 +324,8 @@ def main():
               + ", ".join(f"{k} {v}" for k, v in row.items())
               + f"; gated share {res['gated_share'][sigma]}", flush=True)
     # the port's K1 at sigma 1 with each run length
-    if "port_runs" in variants:
-        runs = variants["port_runs"].frangi_response_max_runs
+    if "port_runs" in port_variants:
+        runs = port_variants["port_runs"].frangi_response_max_runs
         sm = _smooth(slab, 1.0)
         g = (_frobenius_max(sm, 1.0, halo, chunk) * 0.5).reshape(())
         best = torch.zeros((chunk,) + tuple(sm.shape[1:]), device=dev)
@@ -389,13 +336,14 @@ def main():
                     sm.data_ptr(), *sm.shape, halo, chunk, zc,
                     best.data_ptr(), 0, g.data_ptr(), 1.0, 0.25, 2.0, 2.0, 1,
                     stream), "frangi_response_max_runs")
-            res["ms_by_run_length"][zc] = events_ms(launch)
+            res["ms_by_run_length"][zc] = events_ms(launch, n=100,
+                                                    warmup=10)
         print(f"port K1 at sigma 1 by run length (planes: ms): "
               f"{res['ms_by_run_length']}", flush=True)
     torch.cuda.synchronize()
     res["ms_mean"] = {k: float(np.mean([r[k] for r in res["ms"].values()]))
                       for k in ("port_k1", "port_k1_profiler") + VARIANTS
-                      + tuple(v for v in variants if v != "port_runs")
+                      + tuple(v for v in port_variants if v != "port_runs")
                       if None not in [r[k] for r in res["ms"].values()]}
     print(json.dumps(res), flush=True)
     return 0

@@ -47,13 +47,14 @@ import ctypes
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+from kernel_probe import build_all, demangle, events_ms, variants  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 RG_SHAPE = (512, 512, 170)
@@ -212,61 +213,6 @@ extern "C" int table_lookup(const void* bins, int bin_bytes,
 """
 
 
-def ptxas_lines(log):
-    return [ln.strip() for ln in log.splitlines()
-            if "Compiling entry" in ln or "registers" in ln
-            or "spill" in ln or "stack frame" in ln]
-
-
-def demangle(lines):
-    tool = shutil.which("cu++filt") or os.path.join(
-        os.path.dirname(_nvcc()), "cu++filt")
-    if not os.path.exists(tool):
-        return lines
-    out = subprocess.run([tool], input="\n".join(lines), capture_output=True,
-                         text=True, timeout=60).stdout
-    return out.splitlines() or lines
-
-
-def _nvcc():
-    from arterynetwork_tpu_torch.ops import cuda_build
-
-    return cuda_build._nvcc()
-
-
-def build_all(sources):
-    """{name: (ctypes library, ptxas lines)} of {name: CUDA source text},
-    all nvcc processes started together, built like the port's kernels
-    into build/k7_probe/<name>.so; a build that fails is reported and
-    left out."""
-    from arterynetwork_tpu_torch.ops import cuda_build
-
-    out_dir = os.path.join(ROOT, "build", "k7_probe")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        src, so = (os.path.join(out_dir, f"{name}.cu"),
-                   os.path.join(out_dir, f"{name}.so"))
-        with open(src, "w") as f:
-            f.write(text)
-        procs[name] = (so, subprocess.Popen(
-            [_nvcc(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC, "-o",
-             so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            print(f"{name}: build failed, left out:\n{log}", flush=True)
-            continue
-        lib = ctypes.CDLL(so)
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.table_lookup.restype = I
-        lib.table_lookup.argtypes = [P, I, P, I, I, P, I, LL, I, P]
-        libs[name] = (lib, demangle(ptxas_lines(log)))
-    return libs
-
-
 def resident_blocks(ptxas, threads=256):
     """{kernel: blocks per SM that its registers allow (65,536 per SM,
     allocated per warp in units of 256; at most 2,048 threads)}."""
@@ -282,23 +228,6 @@ def resident_blocks(ptxas, threads=256):
             out[name] = min(2048 // threads,
                             65536 // (per_warp * (threads // 32)))
     return out
-
-
-def events_ms(fn, n=REPS):
-    """Device ms per call: CUDA events around ``n`` back-to-back calls,
-    after 3 warm-up calls."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
 
 
 def run_case(name, bins, table, sign, libs, res, library=True):
@@ -338,7 +267,7 @@ def run_case(name, bins, table, sign, libs, res, library=True):
         if not torch.equal(out.view(torch.uint8), ref.view(torch.uint8)):
             raise SystemExit(f"k7_breakdown: {build} differs from the plain "
                              f"gather on {name}")
-        row["events"][build] = events_ms(launch)
+        row["events"][build] = events_ms(launch, n=REPS)
         row["trace"][build] = (None if n > 2 ** 31 else
                                device_ms(launch, own=True)[0])
     del out
@@ -398,23 +327,18 @@ def main():
           f"{smi}", flush=True)
     with open(os.path.join(cuda_build.CSRC, "table_lookup.cu")) as f:
         port = f.read()
-    sources = {"port": port}
-    for name, subs in VARIANTS.items():
-        v = port
-        for old, new in zip(subs[::2], subs[1::2]):
-            if old not in v:
-                print(f"{name}: not in the port's source, skipped",
-                      flush=True)
-                break
-            v = v.replace(old, new, 1)
-        else:
-            sources[name] = v
-    sources["staged_store"] = STAGED_STORE_SRC
+    sources = {"port": port, **variants(port, VARIANTS),
+               "staged_store": STAGED_STORE_SRC}
     if args.baseline:
         with open(args.baseline) as f:
             sources["baseline"] = f.read()
     t0 = time.perf_counter()
-    libs = build_all(sources)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    libs = {}
+    for name, (lib, lines, _) in build_all(sources, "k7_probe").items():
+        lib.table_lookup.restype = I
+        lib.table_lookup.argtypes = [P, I, P, I, I, P, I, LL, I, P]
+        libs[name] = (lib, demangle(lines))
     res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "build_s": time.perf_counter() - t0,
            "ptxas": {k: v[1] for k, v in libs.items()},

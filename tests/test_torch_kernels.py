@@ -274,6 +274,114 @@ def test_padded_sweep_entries_match_plain(cuda, entry, kind, valid, padded):
     assert torch.equal(out[1], hp) and torch.equal(out[2], hn)
 
 
+def _window_swept(seg, bins, words, window, valid=None):
+    """K2 over ``window`` into caller buffers, against the plain version:
+    the window's rows of its planes over the valid x and the counts added
+    into ``dh`` exactly, nothing written outside those rows, and their
+    padding past the valid x zero or untouched.  Returns the number of
+    the window's flips."""
+    Z, Y, X = seg.shape
+    valid = valid or (Y, X)
+    window = window or ((0, Z), (0, valid[0]), (0, valid[1]))
+    ref, ref_dh = rgx.fused_sweep_plain(seg, bins, words, valid, window)
+    out = torch.full_like(seg, 7)
+    dh = torch.ones((2, 256), dtype=torch.int32, device=seg.device)
+    rgx.fused_sweep_counts(seg, bins, words, valid, window, out=out, dh=dh)
+    torch.cuda.synchronize()
+    rows = tuple(slice(lo, hi) for lo, hi in window[:2])
+    assert torch.equal(out[rows][..., :valid[1]], ref[rows][..., :valid[1]])
+    assert torch.equal(dh, ref_dh + 1)
+    pad = out[rows][..., valid[1]:]
+    assert ((pad == 0) | (pad == 7)).all()
+    written = torch.zeros_like(seg, dtype=torch.bool)
+    written[rows] = True
+    assert (out[~written] == 7).all()
+    return int(ref_dh.sum())
+
+
+_BLOCK = (258, 258, 170)        # a 2x2 block of 512x512x170 with its halo
+_BLOCK_WIN = ((1, 257), (1, 257), (0, 170))
+
+
+# The launcher's tiling (csrc/region_grow_sweep.cu): the fewest strips of
+# equal height of at most min(64, 2 * 256 / words per row - 2, 16384 /
+# row bytes - 2) rows, then z-runs that fill one wave of the card.
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window", [
+    # windows of fewer than 8 planes, and windows short enough for z-runs
+    # of one plane
+    ((40, 100, 170), ((3, 8), (1, 99), (0, 170))),
+    ((9, 100, 170), ((1, 8), (0, 100), (0, 170))),
+    ((6, 9, 33), ((1, 5), (1, 8), (0, 33))),
+    # window heights that are no multiple of the strip height: 257 rows
+    # (5 strips of 52, the last 49), 253 (4 of 64, the last 61), 33 rows
+    # of 513 (2 of 17, the last 16)
+    ((20, _BLOCK[1], 170), ((1, 19), (0, 257), (0, 170))),
+    ((20, _BLOCK[1], 170), ((1, 19), (2, 255), (0, 170))),
+    ((20, 33, 513), ((0, 20), (0, 33), (0, 513))),
+    # one plane, one row, one voxel
+    ((17, 17, 170), ((8, 9), (0, 17), (0, 170))),
+    ((17, 17, 170), ((0, 17), (5, 6), (0, 170))),
+    ((17, 17, 170), ((16, 17), (16, 17), (169, 170))),
+    ((3, 3, 33), ((1, 2), (1, 2), (1, 32))),
+    # a window touching each face of its region
+    ((12, 40, 170), ((0, 5), (1, 39), (1, 169))),
+    ((12, 40, 170), ((7, 12), (1, 39), (1, 169))),
+    ((12, 40, 170), ((1, 11), (0, 9), (1, 169))),
+    ((12, 40, 170), ((1, 11), (30, 40), (1, 169))),
+    ((12, 40, 170), ((1, 11), (1, 39), (0, 17))),
+    ((12, 40, 170), ((1, 11), (1, 39), (150, 170))),
+    # the sharded grower's 258x258x170 block
+    (_BLOCK, _BLOCK_WIN),
+    # the full grid: 512 rows of 170 (8 strips of 64), 89 rows of 640
+    # (4 strips of 23, the last 20)
+    ((64, 512, 170), None),
+    ((31, 89, 640), None),
+])
+@pytest.mark.parametrize("kind", ["half", "all", "none"])
+def test_sweep_windows_match_plain(cuda, shape, window, kind):
+    bins, seg, words = _random_state(shape, kind, seed=sum(shape),
+                                     device=cuda)
+    flips = _window_swept(seg, bins, words, window)
+    size = np.prod([hi - lo for lo, hi in window or ((0, n) for n in shape)])
+    if kind == "half" and size > 1000:
+        assert flips > 0
+
+
+@pytest.mark.gpu
+def test_sweep_windows_on_views_and_padded_regions(cuda):
+    """An unaligned view (data 1 byte past a 16-byte boundary) and a
+    padded region (valid_yx), each under a window."""
+    bins, seg, words = _random_state((18, 41, 170), "half", device=cuda)
+    assert seg[1:].data_ptr() % 16
+    _window_swept(seg[1:], bins[1:], words, ((1, 16), (1, 40), (0, 170)))
+    pad = (0, 86, 0, 7)
+    seg_p = torch.nn.functional.pad(seg, pad).contiguous()
+    bins_p = torch.nn.functional.pad(bins, pad).contiguous()
+    _window_swept(seg_p, bins_p, words, ((1, 17), (2, 38), (3, 160)),
+                  valid=(41, 170))
+
+
+@pytest.mark.gpu
+def test_sweep_into_caller_buffers_on_card(cuda):
+    """out=/dh= on the card equals the allocating form on the sharded
+    grower's block, on the path's state: no allocation, counts added."""
+    bins, seg, words = _grow_state(_BLOCK, iters=8, device=cuda)
+    seg = seg.to(torch.uint8)
+    ref, ref_dh = rgx.fused_sweep_counts(seg, bins, words, window=_BLOCK_WIN)
+    out = torch.zeros_like(seg)
+    dh = torch.full((2, 256), 3, dtype=torch.int32, device=cuda)
+    n0 = rgx.fused_sweep_counts.launches
+    got = rgx.fused_sweep_counts(seg, bins, words, window=_BLOCK_WIN,
+                                 out=out, dh=dh)
+    torch.cuda.synchronize()
+    assert got[0] is out and got[1] is dh
+    assert rgx.fused_sweep_counts.launches == n0 + 1
+    box = tuple(slice(lo, hi) for lo, hi in _BLOCK_WIN)
+    assert torch.equal(out[box], ref[box]) and torch.equal(dh, ref_dh + 3)
+    assert int(ref_dh.sum()) > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k_max,nb", [(64, 1), (5, 1), (64, 3)])
 def test_frontier_kernel_matches_plain(cuda, k_max, nb):

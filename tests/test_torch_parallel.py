@@ -56,7 +56,8 @@ from arterynetwork_tpu_torch.parallel.distributed import (
     global_volume_mesh, initialize_distributed, solve_batch_dp)
 from arterynetwork_tpu_torch.parallel.halo import (halo_exchange,
                                                    make_volume_mesh,
-                                                   pad_halos, shard_volume,
+                                                   pad_halos, refresh_halos,
+                                                   shard_volume,
                                                    sharded_dilate26)
 from arterynetwork_tpu_torch.parallel.pipeline_sharded import \
     mini_pipeline_sharded
@@ -121,7 +122,51 @@ def test_mesh_layout_and_halo_exchange(mesh):
     out, lo, hi = halo_exchange(sv.blocks, 1, 2, fill=-1)
     assert (lo == 2).all() and (hi == 2).all()
     assert (out[0, 0][:, :2] == -1).all() and (out[0, 3][:, -2:] == -1).all()
+    # along one dim, a halo spanning two blocks of 8 rows
+    out, lo, hi = halo_exchange(sv.blocks, 1, 11)
+    for idx in sv.indices():
+        oz, oy, _ = sv.offset(idx)
+        assert torch.equal(out[idx], x[oz:oz + 16, oy - lo[idx]:oy + 8 +
+                                       hi[idx]])
     assert torch.equal(sv.gather(), x)
+
+
+@pytest.mark.parametrize("devices,shape,halo,fill", [
+    (4, (8, 12, 5), 1, None),
+    (8, (2, 4, 7), 1, None),          # blocks one plane and one row thick
+    (8, (4, 8, 3), 3, None),          # a halo spanning two blocks
+    (4, (6, 6, 4), 2, -1)])           # face slots of a fill stay
+def test_refresh_halos_equals_pad_halos(devices, shape, halo, fill):
+    """Halo slots overwritten (all but a ``fill``'s face slots, which no
+    update touches), then refreshed from the blocks' own voxels: each
+    padded block equals pad_halos', corners included; without a fill the
+    copies count exactly the halo slots."""
+    m = make_volume_mesh(["cpu"] * devices)
+    x = torch.arange(int(np.prod(shape))).reshape(shape)
+    sv = shard_volume(x, m)
+    pad = pad_halos(sv, halo, fill)
+    ref = {i: pad.blocks[i].clone() for i in sv.indices()}
+    # pad_halos' blocks: the global box around each, ``fill`` past the
+    # volume's faces
+    h = 0 if fill is None else halo
+    xp = torch.full((shape[0] + 2 * h, shape[1] + 2 * h, shape[2]),
+                    0 if fill is None else fill, dtype=x.dtype)
+    xp[h:h + shape[0], h:h + shape[1]] = x
+    for i in sv.indices():
+        (z0, _), (y0, _), _ = pad.window(i)
+        oz, oy, _ = sv.offset(i)
+        t = ref[i]
+        assert torch.equal(t, xp[oz + h - z0:oz + h - z0 + t.shape[0],
+                                 oy + h - y0:oy + h - y0 + t.shape[1]])
+    for i in sv.indices():
+        halo_slots = torch.ones(ref[i].shape, dtype=torch.bool)
+        halo_slots[pad.box(i)] = False
+        pad.blocks[i][halo_slots & (ref[i] != fill)] = -7
+    n = refresh_halos(pad)
+    for i in sv.indices():
+        assert torch.equal(pad.blocks[i], ref[i])
+    if fill is None:
+        assert n == sum(t.numel() for t in ref.values()) - x.numel()
 
 
 def test_sharded_dilate26_exact(mesh):
@@ -193,6 +238,57 @@ def test_sharded_region_grow_matches_gspmd(mesh):
     single = region_grow(torch.from_numpy(volume), torch.from_numpy(seed),
                          device="cpu")
     assert int(single.stop_reason) == int(out.stop_reason)
+
+
+def _grow_tube(shape):
+    rng = np.random.default_rng(11)
+    vol = rng.normal(0.1, 0.05, shape).astype(np.float32)
+    c0, c1 = shape[0] // 2, shape[1] // 2
+    vol[max(c0 - 2, 0):c0 + 2, max(c1 - 2, 0):c1 + 2, 2:-2] = 1.0
+    seed = np.zeros(shape, bool)
+    seed[c0, c1, shape[2] // 2 - 1:shape[2] // 2 + 2] = True
+    return vol, seed
+
+
+@pytest.mark.parametrize("devices,shape", [
+    (4, (32, 32, 24)),                # 2x2 of 16x16 blocks
+    (8, (32, 32, 24)),                # 2x4 of 16x8 blocks
+    (8, (2, 12, 40)),                 # 2x4, blocks one plane thick
+    (4, (2, 2, 33))])                 # 2x2, blocks one plane and one row
+def test_sharded_region_grow_matches_single_device(devices, shape,
+                                                   monkeypatch):
+    """The grower on two persistent padded copies equals the
+    single-device grower (mask, iterations, count, stop reason), and
+    after every sweep each block's refreshed halo equals pad_halos of
+    the swept blocks' own voxels, corners included."""
+    vol, seed = _grow_tube(shape)
+    refreshes = []
+
+    def checked(pad, faces):
+        n = refresh_halos(pad, faces)
+        fresh = pad_halos(pad.crop(), 1)
+        for i in pad.source.indices():
+            assert torch.equal(pad.blocks[i], fresh.blocks[i])
+        refreshes.append(n)
+        return n
+
+    monkeypatch.setattr(sharded, "refresh_halos", checked)
+    m = make_volume_mesh(["cpu"] * devices)
+    out = sharded.region_grow(shard_volume(vol, m), shard_volume(seed, m),
+                              max_segment_size=10 ** 7, iter_max=30)
+    single = region_grow(torch.from_numpy(vol), torch.from_numpy(seed),
+                         max_segment_size=10 ** 7, iter_max=30,
+                         device="cpu")
+    assert torch.equal(out.segmented_map.gather(), single.segmented_map)
+    for name in ("iterations", "segmented_count", "stop_reason"):
+        assert int(getattr(out, name)) == int(getattr(single, name)), name
+    sweeps = int(single.iterations) + (int(single.stop_reason) == 0)
+    assert len(refreshes) == sweeps and int(single.segmented_count) > 3
+    # only halo faces are copied: the padded blocks' halo slots, each once
+    pad = pad_halos(shard_volume(np.zeros(shape, np.uint8), m), 1)
+    halo = sum(pad.blocks[i].numel() for i in pad.source.indices()) \
+        - int(np.prod(shape))
+    assert set(refreshes) == {halo}
 
 
 def test_sharded_thinning_matches_jax(mesh):
@@ -333,6 +429,44 @@ def test_windowed_sweep_plain(window, padded):
     with pytest.raises(ValueError, match="window"):
         tfused.fused_sweep_counts(seg, bins, words, valid,
                                   ((0, 13), (0, 20), (0, 37)))
+
+
+@pytest.mark.parametrize("window", [
+    None,                             # the whole region
+    ((5, 6), (0, 20), (0, 37)),       # one plane
+    ((0, 1), (19, 20), (36, 37)),     # one voxel at a corner
+    ((2, 9), (4, 15), (5, 30)),       # inside, x cut too
+])
+@pytest.mark.parametrize("padded", [False, True])
+def test_sweep_into_caller_buffers_plain(window, padded):
+    """The wrapper's out=/dh= form (through the plain version here)
+    equals the allocating form: the window's rows of its planes written
+    (over the valid x) and nothing else of ``out``, the counts added into
+    ``dh``; both buffers are returned as they are."""
+    seg, bins, words = _sweep_state((12, 20, 37), 6)
+    valid = None
+    if padded:
+        seg = torch.nn.functional.pad(seg, (0, 11, 0, 4))
+        bins = torch.nn.functional.pad(bins, (0, 11, 0, 4))
+        valid = (20, 37)
+    ref, ref_dh = tfused.fused_sweep_counts(seg, bins, words, valid, window)
+    out = torch.full_like(seg, 7)
+    dh = torch.arange(512, dtype=torch.int32).reshape(2, 256)
+    got, got_dh = tfused.fused_sweep_counts(seg, bins, words, valid, window,
+                                            out=out, dh=dh)
+    assert got is out and got_dh is dh
+    (z0, z1), (y0, y1) = (window or ((0, 12), (0, 20)))[:2]
+    written = torch.zeros(seg.shape, dtype=torch.bool)
+    written[z0:z1, y0:y1, :37] = True
+    assert torch.equal(out[written], ref[written])
+    assert (out[~written] == 7).all()
+    assert torch.equal(dh, ref_dh + torch.arange(512, dtype=torch.int32)
+                       .reshape(2, 256))
+    for bad in ({"out": seg}, {"out": out[:, 1:]},
+                {"out": out.to(torch.int32)},
+                {"dh": dh.to(torch.int64)}, {"dh": dh[:, :128]}):
+        with pytest.raises(ValueError):
+            tfused.fused_sweep_counts(seg, bins, words, valid, window, **bad)
 
 
 def test_dryrun_multichip_cpu():
