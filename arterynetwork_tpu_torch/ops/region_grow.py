@@ -16,8 +16,10 @@ math and its operation order:
    front comes within two hops.
 
 Termination as in the reference (:91-104): no flips, the size cap, or the
-iteration cap.  The JAX ``while_loop`` is a Python loop here that reads
-the stop code from the device once per iteration.
+iteration cap.  The JAX ``while_loop`` becomes one step function that
+updates the state in place, run by ops/grow_loop.py: replayed as a
+captured CUDA graph on a card, a host loop on the CPU; either reads the
+stop code once per iteration.
 
 ``backend``: "auto" takes the fused sweep (ops/region_grow_fused.py, the
 K2 kernel, in f32) for f32 data on a CUDA device with no excluded mask
@@ -38,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import grow_loop
 from .histogram import (masked_histogram_one, masked_histograms_best,
                         sign_lookup)
 from .stencil import dilate26
@@ -168,7 +171,7 @@ def _region_grow_xla(data, seed_mask, excluded_mask=None,
     (f64 stays f64, anything else is f32)."""
     dtype = torch.float64 if data.dtype == torch.float64 else torch.float32
     data = data.to(dtype)
-    seg = seed_mask.to(torch.bool)
+    seg = seed_mask.to(torch.bool, copy=True)   # the loop's, in place
     track_active = excluded_mask is not None
     if track_active:
         active = ~excluded_mask.to(torch.bool)
@@ -215,20 +218,23 @@ def _region_grow_xla(data, seed_mask, excluded_mask=None,
     # a seed already at/over the size cap never updates (reference
     # semantics: the capped state is returned unmodified)
     stop = torch.where(count >= max_segment_size, 1, -1).to(torch.int32)
-    while int(stop) < 0:
+
+    def step():                 # seg, active, count, it, stop in place
         # unconditional apply + post-checked size cap: the state that
         # first reaches the cap is final (reference :101-104)
         flips = compute_flips(seg, active)
         n_pos = torch.sum(flips & ~seg, dtype=torch.int32)
         n_neg = torch.sum(flips & seg, dtype=torch.int32)
         converged = (n_pos + n_neg) == 0
-        seg = torch.logical_xor(seg, flips)       # no-op when converged
+        seg.logical_xor_(flips)                   # no-op when converged
         if track_active:                          # flips are empty then too
-            active = active | dilate26(dilate26(flips))
-        count = count + n_pos - n_neg
-        it = it + (~converged).to(torch.int32)
-        stop = _stop_code(converged, count >= max_segment_size, it,
-                          iter_max)
+            active.logical_or_(dilate26(dilate26(flips)))
+        count.add_(n_pos).sub_(n_neg)
+        it.add_((~converged).to(torch.int32))
+        stop.copy_(_stop_code(converged, count >= max_segment_size, it,
+                              iter_max))
+
+    grow_loop.drive([step], stop)
     return RegionGrowResult(segmented_map=seg, active_map=active,
                             iterations=it, segmented_count=count,
                             stop_reason=stop)

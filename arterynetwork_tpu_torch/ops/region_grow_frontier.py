@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, grow_loop
 from .histogram import masked_histogram_one
 from .region_grow import (DEFAULT_H, DEFAULT_ITER_MAX,
                           DEFAULT_MAX_SEGMENT_SIZE, RegionGrowResult,
@@ -157,7 +157,8 @@ frontier_step.launches = 0
 
 def _compact(active_flat, k_pad):
     """The first ``k_pad`` active tile ids (zero-filled), without a host
-    synchronisation."""
+    synchronisation (and capturable: the ids past ``k_pad`` land in the
+    spare slot ``k_pad``, which is dropped)."""
     pos = torch.cumsum(active_flat, 0) - 1
     keep = active_flat & (pos < k_pad)
     slot = torch.where(keep, pos, torch.full_like(pos, k_pad))
@@ -166,7 +167,6 @@ def _compact(active_flat, k_pad):
     ids.scatter_(0, slot, torch.arange(active_flat.shape[0],
                                        dtype=torch.int32,
                                        device=active_flat.device))
-    ids[k_pad] = 0
     return ids[:k_pad].contiguous()
 
 
@@ -207,7 +207,8 @@ def region_grow_frontier(data, seed_mask, H: float = DEFAULT_H,
     it = torch.zeros((), dtype=torch.int32, device=device)
     stop = torch.where(torch.sum(inner) >= max_segment_size, 1,
                        -1).to(torch.int32)
-    while int(stop) < 0:
+
+    def step():                 # seg, active, inner, it, stop in place
         inner_f = inner.to(torch.float32)
         diff = _decision_table(K, inner_f, hist_all - inner_f)
         n_active = torch.sum(active)
@@ -225,13 +226,16 @@ def region_grow_frontier(data, seed_mask, H: float = DEFAULT_H,
         keep = zeros.scatter_reduce(0, tid, hb, "amax") > 0
         proc = zeros.scatter_reduce(0, tid, valid.to(torch.int32),
                                     "amax") > 0
-        active = ((active & ~proc) | keep
-                  | dilate26(flipped.reshape(ntz, nty)).reshape(-1))
-        inner = inner + dhist
+        active.copy_((active & ~proc) | keep
+                     | dilate26(flipped.reshape(ntz, nty)).reshape(-1))
+        inner.add_(dhist)
         converged = (torch.sum(nf) == 0) & (n_active <= k_max)
-        it = it + (~converged).to(torch.int32)
-        stop = _stop_code(converged, torch.sum(inner) >= max_segment_size,
-                          it, iter_max)
+        it.add_((~converged).to(torch.int32))
+        stop.copy_(_stop_code(converged,
+                              torch.sum(inner) >= max_segment_size, it,
+                              iter_max))
+
+    grow_loop.drive([step], stop)
     seg = seg != 0
     return RegionGrowResult(
         segmented_map=seg, active_map=torch.ones_like(seg), iterations=it,

@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, grow_loop
 from .histogram import masked_histogram_one
 from .region_grow import (DEFAULT_H, DEFAULT_ITER_MAX,
                           DEFAULT_MAX_SEGMENT_SIZE, RegionGrowResult,
@@ -277,22 +277,31 @@ def region_grow_fused(data, seed_mask, H: float = DEFAULT_H,
     inner = masked_histogram_one(bins_flat, seg0.reshape(-1),
                                  NUM_BINS).to(torch.int32)
 
-    seg = seg0.to(torch.uint8).contiguous()
+    # the loop's state, written in place: K2 sweeps one seg buffer into
+    # the other (ping-pong), dh takes its counts
+    segs = (seg0.to(torch.uint8).contiguous(),
+            torch.empty(seg0.shape, dtype=torch.uint8, device=device))
+    dh = torch.zeros((2, NUM_BINS), dtype=torch.int32, device=device)
     count = torch.sum(seg0, dtype=torch.int32)
     it = torch.zeros((), dtype=torch.int32, device=data.device)
     stop = torch.where(count >= max_segment_size, 1, -1).to(torch.int32)
-    while int(stop) < 0:
+
+    def step(src, dst):
         inner_f = inner.to(torch.float32)
         diff = _decision_table(K, inner_f, hist_all - inner_f)
-        seg, dh = fused_sweep_counts(seg, bins, pack_sign_words(diff))
+        dh.zero_()
+        fused_sweep_counts(src, bins, pack_sign_words(diff), out=dst, dh=dh)
         n_pos, n_neg = dh.sum(dim=1, dtype=torch.int32)
         converged = (n_pos + n_neg) == 0
-        inner = inner + dh[0] - dh[1]
-        count = count + n_pos - n_neg
-        it = it + (~converged).to(torch.int32)
-        stop = _stop_code(converged, count >= max_segment_size, it,
-                          iter_max)
-    seg = seg != 0
+        inner.add_(dh[0]).sub_(dh[1])
+        count.add_(n_pos).sub_(n_neg)
+        it.add_((~converged).to(torch.int32))
+        stop.copy_(_stop_code(converged, count >= max_segment_size, it,
+                              iter_max))
+
+    n = grow_loop.drive([lambda: step(*segs), lambda: step(*segs[::-1])],
+                        stop)
+    seg = segs[n % 2] != 0
     return RegionGrowResult(segmented_map=seg,
                             active_map=torch.ones_like(seg),
                             iterations=it, segmented_count=count,

@@ -54,19 +54,28 @@ Phases, each printing its own lines:
                call alone); K5's fixed cost (no tile active);
   8. region_grow_512 — bench.py's bench_region_grow workload through
                region_grow "auto" (K2 + K6b), "xla" (K6b + K7) and
-               region_grow_frontier (K5 + K6b), each also with the plain
-               versions on the card: one (iterations, count) and one mask
-               for all; then "xla" with an excluded slab (K6a + K7);
-               one traced run each of "auto" and "frontier" for the
-               device's idle share;
+               region_grow_frontier (K5 + K6b), then "xla" with an
+               excluded slab (K6a + K7); each grower driven by captured
+               CUDA graphs (ops/grow_loop.py), by the eager loop with the
+               kernels and by the eager loop with the plain versions on
+               the card: the three identical (mask, active map,
+               iterations, count, stop reason), the graph run with the
+               eager run's launches, one replay per pass after the
+               first and one host read of stop per pass plus one; one
+               (iterations, count) and one mask for auto, xla and
+               frontier; graph and eager times, host reads per grow, and
+               one traced run of each grower for the device's idle share;
   9. value_map_512 — the reference's interface, region_grow_value_map,
                on the tube with the excluded slab as state 4: one warm-up
                and three timed runs (K6a + K7 per iteration, the value map
-               rebuilt on the card), equal to the "xla" excluded grower;
+               rebuilt on the card), driven by graphs, equal to the "xla"
+               excluded grower and to a run of the eager loop;
  10. seeded_pipeline_512 — run_pipeline(raw_volume, seed_mask) on the
                pipeline_512 phantom, seeded with the 3x3x3 cube at the
                tree's root: one warm-up and three timed runs, finite
-               pressures and flows, at least one segment.
+               pressures and flows, at least one segment, each run's
+               grower driven by graphs; the segmentation stage's grower
+               on its own, graph, eager and plain (as region_grow_512).
      voxel_options_512 — pipeline_512 with a brain ellipsoid (semi-axes
                250, 250, 82), the tip extension (0.015, 3 steps, <= 4
                neighbours) and skeleton.backend "jax" (the device
@@ -131,7 +140,8 @@ Phases, each printing its own lines:
      speck_region_grow — bench.py::bench_speck_region_grow: the tube
                phantom (radius 3), 60 iterations, 10^7 voxels, through
                "auto" (K2 + K6b), "xla" (K6b + K7) and the frontier
-               grower (K5 + K6b), one timed run each after a warm-up: one
+               grower (K5 + K6b), one timed run each after a warm-up,
+               graph-driven, eager and plain as in region_grow_512: one
                fixed point and one mask; the bins past 2^24 at iteration
                0 and the decision-table signs they move; then
                frangi_vesselness_chunked (sigmas 1, 2, 3; 110-row slabs):
@@ -710,11 +720,68 @@ def read_counts():
     return {name: fn.launches for name, fn in counted().items()}
 
 
+def reset_loop_counts():
+    loop = _ops("grow_loop")
+    loop.read_stop.reads = 0
+    loop.graph_loop.captures = loop.graph_loop.replays = 0
+
+
+def loop_counts():
+    """The growers' host reads of ``stop``, graphs captured, replays."""
+    loop = _ops("grow_loop")
+    return {"reads": loop.read_stop.reads,
+            "captures": loop.graph_loop.captures,
+            "replays": loop.graph_loop.replays}
+
+
+@contextlib.contextmanager
+def eager_loop():
+    """Run the growers' steps in the eager host loop on the card too (the
+    loop, ``grow_loop.drive``, replays captured graphs for CUDA
+    tensors)."""
+    loop = _ops("grow_loop")
+    drive = loop.drive
+    loop.drive = loop.host_loop
+    try:
+        yield
+    finally:
+        loop.drive = drive
+
+
+def _graph_driven(label, res, loops):
+    """Fail unless the grow behind ``res`` read ``stop`` once per pass
+    plus once, and replayed captured graphs for every pass after the
+    first (none captured for one pass or none)."""
+    passes = int(res.iterations) + (int(res.stop_reason) == 0)
+    ok = (loops["reads"] == passes + 1
+          and loops["replays"] == max(passes - 1, 0)
+          and (loops["captures"] > 0) == (passes > 1))
+    if not ok:
+        raise SystemExit(f"{label}: {passes} passes, loop counts {loops}: "
+                         f"not one captured graph replay per pass after "
+                         f"the first and one stop read per pass plus one")
+
+
+def _same_grow(a, b):
+    """The two RegionGrowResults agree in mask, active map, iterations,
+    count and stop reason."""
+    import torch
+
+    return (torch.equal(a.segmented_map, b.segmented_map)
+            and torch.equal(a.active_map, b.active_map)
+            and [int(a.iterations), int(a.segmented_count),
+                 int(a.stop_reason)]
+            == [int(b.iterations), int(b.segmented_count),
+                int(b.stop_reason)])
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the region growers to the kernels' plain versions for CUDA
     tensors too (the wrappers launch the kernels for every CUDA tensor),
-    by swapping the names the growers call."""
+    by swapping the names the growers call, and their loop to the eager
+    host loop (the plain versions synchronise, so they cannot be
+    captured)."""
     hist, hk = _ops("histogram"), _ops("histogram_kernels")
     fused, front = _ops("region_grow_fused"), _ops("region_grow_frontier")
     rg, lk = _ops("region_grow"), _ops("lookup_kernels")
@@ -732,7 +799,8 @@ def plain_kernels():
     try:
         for m, a, f in swaps:
             setattr(m, a, f)
-        yield
+        with eager_loop():
+            yield
     finally:
         for m, a, f in saved:
             setattr(m, a, f)
@@ -1248,14 +1316,46 @@ def device_idle(fn):
 
 
 def _grow_run(fn):
+    """(result, wall s, kernel launches, loop counts) of one run."""
     import torch
 
     reset_counts()
+    reset_loop_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
-    return res, time.perf_counter() - t0, read_counts()
+    return res, time.perf_counter() - t0, read_counts(), loop_counts()
+
+
+def _grow_three_ways(phase, name, fn):
+    """``fn`` (one grow) driven by captured graphs and by the eager loop
+    with the kernels, each after a warm-up, and by the eager loop with the
+    plain versions: the three must agree (mask, active map, iterations,
+    count, stop reason), the graph run must count the eager run's
+    launches, read ``stop`` once per pass plus once and replay a graph
+    for every pass after the first, and the plain run launch nothing.
+    -> (graph result, graph s, launches, loop counts, eager s)."""
+    fn()                                       # warm-ups: graph, eager
+    res, secs, counts, loops = _grow_run(fn)
+    with eager_loop():
+        fn()
+        eager, e_secs, e_counts, e_loops = _grow_run(fn)
+    with plain_kernels():
+        ref, p_secs, p_counts, _ = _grow_run(fn)
+    same = _same_grow(res, eager) and _same_grow(res, ref)
+    log(phase, f"{name}: graphs {secs:.4f} s, eager loop {e_secs:.4f} s, "
+        f"plain versions {p_secs:.4f} s; host reads of stop {loops['reads']}"
+        f" (eager {e_loops['reads']}), graphs captured {loops['captures']},"
+        f" replays {loops['replays']}; identical {same}")
+    if not same or any(p_counts.values()):
+        raise SystemExit(f"{phase} {name}: graph, eager and plain runs "
+                         f"differ (plain launches {p_counts})")
+    if counts != e_counts or e_loops["reads"] != loops["reads"]:
+        raise SystemExit(f"{phase} {name}: the graph run counts {counts}, "
+                         f"{loops}; the eager loop {e_counts}, {e_loops}")
+    _graph_driven(f"{phase} {name}", res, loops)
+    return res, secs, counts, loops, e_secs
 
 
 def phase_region_grow_512(vol, seed):
@@ -1285,24 +1385,13 @@ def phase_region_grow_512(vol, seed):
     voxels = float(vol.size)
     results, launches = {}, {}
     for name, (fn, kernels) in growers.items():
-        fn()                                   # warm-up
-        res, secs, counts = _grow_run(fn)
-        with plain_kernels():
-            ref, p_secs, p_counts = _grow_run(fn)
+        res, secs, counts, _, _ = _grow_three_ways("region_grow_512",
+                                                   name, fn)
         it, n = int(res.iterations), int(res.segmented_count)
-        same = (torch.equal(res.segmented_map, ref.segmented_map)
-                and torch.equal(res.active_map, ref.active_map)
-                and (it, n, int(res.stop_reason))
-                == (int(ref.iterations), int(ref.segmented_count),
-                    int(ref.stop_reason)))
         used = {k: v for k, v in counts.items() if v}
         log("region_grow_512", f"{name}: {secs:.4f} s warm, {it} "
             f"iterations, {n} segmented, stop {int(res.stop_reason)}, "
-            f"{voxels * it / secs:.4e} voxel-sweeps/s; launches {used}; "
-            f"plain versions on the card {p_secs:.4f} s, identical {same}")
-        if not same or any(p_counts.values()):
-            raise SystemExit(f"{name}: kernel and plain runs differ "
-                             f"(plain launches {p_counts})")
+            f"{voxels * it / secs:.4e} voxel-sweeps/s; launches {used}")
         if not all(counts[k] > 0 for k in kernels):
             raise SystemExit(f"{name}: expected launches of {kernels}, "
                              f"got {counts}")
@@ -1313,10 +1402,13 @@ def phase_region_grow_512(vol, seed):
             raise SystemExit(f"{name}: {counts['sign_lookup']} K7 launches "
                              f"for {passes} passes")
         results[name], launches[name] = res, counts
-        if name in ("auto", "frontier"):
-            wall, busy, idle = device_idle(fn)
-            log("region_grow_512", f"{name} traced by torch.profiler: "
-                f"{wall:.4f} s, device busy {busy:.4f} s, idle {idle:.1%}")
+        wall, busy, idle = device_idle(fn)
+        log("region_grow_512", f"{name} traced by torch.profiler: "
+            f"{wall:.4f} s, device busy {busy:.4f} s, idle {idle:.1%}; "
+            f"against the untraced run's {secs:.4f} s idle "
+            f"{1 - busy / secs:.1%} (the tracer's host cost taken out)")
+        if busy <= 0:
+            raise SystemExit(f"{name}: the trace holds no device time")
     a = results["auto"]
     for name in ("xla", "frontier"):
         r = results[name]
@@ -1352,7 +1444,7 @@ def phase_f64_grow():
         0, 1e-3, shape)
     kw = {"max_segment_size": 10 ** 6, "iter_max": 300}
     ref = region_grow(vol, seed, backend="xla", device="cpu", **kw)
-    out, secs, counts = _grow_run(
+    out, secs, counts, _ = _grow_run(
         lambda: region_grow(vol, seed, device="cuda", **kw))
     f32 = region_grow(vol, seed, backend="fused", device="cuda", **kw)
 
@@ -1394,13 +1486,25 @@ def phase_value_map(vol, seed, ex):
     run()                                      # warm-up
     totals = []
     for i in range(3):
-        (coords, seg_map, vm), secs, counts = _grow_run(run)
+        (coords, seg_map, vm), secs, counts, loops = _grow_run(run)
         totals.append(secs)
         log("value_map_512", f"run {i + 1}: {secs:.4f} s; launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
+            f"{ {k: v for k, v in counts.items() if v} }; host reads of "
+            f"stop {loops['reads']}, graphs captured {loops['captures']}")
         for k in ("masked_histograms2", "sign_lookup"):
             if not counts[k] > 0:
                 raise SystemExit(f"value_map_512 launched no {k}")
+        _graph_driven("value_map_512", ex, loops)   # the same grow as ex
+    with eager_loop():
+        run()
+        eager, e_secs, e_counts, _ = _grow_run(run)
+    same_eager = (e_counts == counts and all(
+        np.array_equal(a, b) for a, b in zip(eager, (coords, seg_map, vm))))
+    log("value_map_512", f"the eager loop {e_secs:.4f} s (after a "
+        f"warm-up); outputs and launches equal to the graph runs' "
+        f"{same_eager}")
+    if not same_eager:
+        raise SystemExit("value_map_512: graph and eager loops differ")
     def host_s(fn, reps=3):
         ts = []
         for _ in range(reps):
@@ -1466,9 +1570,10 @@ def phase_seeded_pipeline(phantom, raw):
     cfg.segmentation.max_segment_size = 10 ** 6
     seed = np.zeros(raw.shape, bool)
     seed[tuple(slice(max(c - 1, 0), c + 2) for c in phantom["root"])] = True
-    totals, seg_s = [], []
+    totals, seg_s, run_loops = [], [], []
     for i in range(4):            # run 0 is the warm-up
         reset_counts()
+        reset_loop_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = run_pipeline(raw_volume=raw, seed_mask=seed, config=cfg,
@@ -1476,11 +1581,12 @@ def phase_seeded_pipeline(phantom, raw):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         counts = read_counts()
+        run_loops.append(loop_counts())
         stages = ", ".join(f"{k} {v:.4f}" for k, v in
                            result["timings"].items())
         log("seeded_pipeline_512", f"run {i}{' (warm-up)' if i == 0 else ''}"
             f": total {total:.4f} s; launches {counts}; stages (s): "
-            f"{stages}")
+            f"{stages}; grower loop {run_loops[-1]}")
         for k in ("frangi_response", "region_grow_sweep",
                   "masked_histogram1"):
             if not counts[k] > 0:
@@ -1489,7 +1595,12 @@ def phase_seeded_pipeline(phantom, raw):
             totals.append(total)
             seg_s.append(result["timings"]["segmentation"])
     v = vesselness_stage(raw, cfg, device="cuda")
-    mask, res = refine_mask_region_grow(v, seed, cfg, device="cuda")
+    res, g_s, _, loops, e_s = _grow_three_ways(
+        "seeded_pipeline_512", "the segmentation stage's grower",
+        lambda: refine_mask_region_grow(v, seed, cfg, device="cuda")[1])
+    for i, lc in enumerate(run_loops):      # the same grow in every run
+        _graph_driven(f"seeded_pipeline_512 run {i}", res, lc)
+    mask = res.segmented_map.cpu().numpy().astype(np.uint8)
     sol = result["solution"]
     finite = bool(torch.isfinite(sol.pressure).all()
                   and torch.isfinite(sol.flow).all())
@@ -1499,7 +1610,9 @@ def phase_seeded_pipeline(phantom, raw):
         f"{', '.join(f'{t:.4f}' for t in totals)}); segmentation stage "
         f"median {statistics.median(seg_s):.4f} s; region growing "
         f"{int(res.iterations)} iterations, stop reason "
-        f"{int(res.stop_reason)}; mask voxels {int(mask.sum())}; recall "
+        f"{int(res.stop_reason)}, graphs {g_s:.4f} s against the eager "
+        f"loop's {e_s:.4f} s, {loops['reads']} host reads per grow; "
+        f"mask voxels {int(mask.sum())}; recall "
         f"{recall:.4f}; segments {len(result['segments'])}; flow edges "
         f"{result['network'].num_edges}; pressures/flows finite {finite}")
     if not np.array_equal(mask, result["mask"]):
@@ -2584,10 +2697,11 @@ def phase_speck_region_grow(vol, seed):
         "frontier": (lambda: region_grow_frontier(data, sd, **kw),
                      ("region_grow_frontier", "masked_histogram1")),
     }
-    results, launches, secs = {}, {}, {}
+    results, launches, secs, eager_s, reads = {}, {}, {}, {}, {}
     for name, (fn, kernels) in growers.items():
-        fn()                                   # warm-up
-        res, secs[name], counts = _grow_run(fn)
+        res, secs[name], counts, loops, eager_s[name] = _grow_three_ways(
+            P, name, fn)
+        reads[name] = loops["reads"]
         it, n = int(res.iterations), int(res.segmented_count)
         used = {k: v for k, v in counts.items() if v}
         log(P, f"{name}: {secs[name]:.4f} s warm, {it} iterations, {n} "
@@ -2644,7 +2758,8 @@ def phase_speck_region_grow(vol, seed):
     d = (out - twin).abs()
     within = bool((d <= K1_TOL + 1e-4 * twin.abs()).all())
     rec = {"phase": P, "shape": list(vol.shape),
-           "grower_s": secs, "fixed_point": key,
+           "grower_s": secs, "eager_loop_s": eager_s,
+           "host_reads": reads, "fixed_point": key,
            "launches": {k: {n: v for n, v in c.items() if v}
                         for k, c in launches.items()},
            "count_rounding": rounding, "chunked_s": t_ch,

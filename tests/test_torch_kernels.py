@@ -8,8 +8,11 @@ compiled with -fmad=false and follows the twin's operation order, so its
 tolerance is 1e-6 absolute on responses in [0, 1] (measured on an H100:
 0, the two are bit-identical).  The region-growing kernels count
 integers and take the same decision words, so they must agree exactly.
-The last tests pin which grower ``region_grow`` takes: f64 data stays on
-the f64 full-grid path, on the card too, equal to the CPU's result.
+Then tests pin which grower ``region_grow`` takes: f64 data stays on
+the f64 full-grid path, on the card too, equal to the CPU's result.  The
+last ones hold the growers' graph-driven loop on the card (each
+iteration a captured CUDA graph, replayed) to the eager loop, bit for
+bit, with the launches and stop reads one pass each makes.
 This file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch:
@@ -22,13 +25,16 @@ import numpy as np
 import pytest
 import torch
 
+from arterynetwork_tpu_torch.ops import grow_loop
 from arterynetwork_tpu_torch.ops import region_grow_fused as rgx
 from arterynetwork_tpu_torch.ops.histogram_kernels import (
     masked_histogram1, masked_histograms2, masked_histograms_plain)
 from arterynetwork_tpu_torch.ops.region_grow import (_bin_ids, _quantize,
                                                      _use_fused, region_grow)
+from arterynetwork_tpu_torch.ops.lookup_kernels import sign_lookup
 from arterynetwork_tpu_torch.ops.region_grow_frontier import (
-    _compact, _tile_grid, frontier_step, frontier_step_plain)
+    _compact, _tile_grid, frontier_step, frontier_step_plain,
+    region_grow_frontier)
 from arterynetwork_tpu_torch.ops.vesselness import _smooth
 from arterynetwork_tpu_torch.ops.vesselness_fused import (
     frangi_response_max_, frangi_response_plain_)
@@ -601,3 +607,115 @@ def test_flow_sums_and_solves_repeat_on_the_card(cuda):
             rel = float((a.pressure.double().cpu() - torch.as_tensor(
                 gt.pressure)).abs().max() / abs(gt.pressure).max())
             assert rel <= 1e-5
+
+
+# ----------------------------------------------------------------------
+# the growers' loop on the card: captured CUDA graphs, replayed
+# ----------------------------------------------------------------------
+GROW_KW = {"max_segment_size": 10 ** 6, "iter_max": 300}
+# launches per pass and before the loop, by kernel counter
+PER_PASS = {"fused": ({"region_grow_sweep": 1}, {"masked_histogram1": 2}),
+            "frontier": ({"region_grow_frontier": 1},
+                         {"masked_histogram1": 2}),
+            "xla": ({"masked_histogram1": 1, "sign_lookup": 1},
+                    {"masked_histogram1": 1}),
+            "xla_excluded": ({"masked_histograms2": 1, "sign_lookup": 1},
+                             {})}
+
+
+def _growers(shape, device):
+    """The four grower cases on bench.py's tube phantom, the excluded
+    slab across the tube."""
+    vol, seed = tube_phantom(shape)
+    data = torch.from_numpy(vol).to(device)
+    sd = torch.from_numpy(seed).to(device)
+    ex = torch.zeros_like(sd)
+    ex[:, :, shape[2] // 2 + 6:shape[2] // 2 + 10] = True
+    return {
+        "fused": lambda: rgx.region_grow_fused(data, sd, **GROW_KW),
+        "frontier": lambda: region_grow_frontier(data, sd, **GROW_KW),
+        "xla": lambda: region_grow(data, sd, backend="xla", **GROW_KW),
+        "xla_excluded": lambda: region_grow(data, sd, ex, backend="xla",
+                                            **GROW_KW)}
+
+
+def _grow_key(r):
+    return [t.cpu() for t in (r.segmented_map, r.active_map, r.iterations,
+                              r.segmented_count, r.stop_reason)]
+
+
+def _launch_counts():
+    return {"masked_histogram1": masked_histogram1.launches,
+            "masked_histograms2": masked_histograms2.launches,
+            "region_grow_sweep": rgx.fused_sweep_counts.launches,
+            "region_grow_frontier": frontier_step.launches,
+            "sign_lookup": sign_lookup.launches}
+
+
+def _loop_counts():
+    return (grow_loop.read_stop.reads, grow_loop.graph_loop.captures,
+            grow_loop.graph_loop.replays)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(48, 48, 48), (40, 37, 45)],
+                         ids=["48", "ragged"])
+@pytest.mark.parametrize("grower", list(PER_PASS))
+def test_graph_driven_growers_match_eager_loop(cuda, grower, shape,
+                                               monkeypatch):
+    """Graph-driven and eager loops give the same bits; the graph run
+    counts passes x kernels per pass (plus the launches before the
+    loop), reads stop once per pass plus once and replays a graph for
+    every pass after the first; a second call captures anew and gives
+    the same result."""
+    fn = _growers(shape, cuda)[grower]
+    runs = []
+    for _ in range(2):
+        n0, l0 = _launch_counts(), _loop_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        runs.append((_grow_key(res), {k: v - n0[k] for k, v in
+                                      _launch_counts().items()},
+                     [a - b for a, b in zip(_loop_counts(), l0)]))
+    with monkeypatch.context() as m:
+        m.setattr(grow_loop, "drive", grow_loop.host_loop)
+        eager = _grow_key(fn())
+    key, launched, (reads, captures, replays) = runs[0]
+    assert all(torch.equal(a, b) for a, b in zip(key, eager))
+    assert all(torch.equal(a, b) for a, b in zip(key, runs[1][0]))
+    assert runs[1][1:] == runs[0][1:]          # captured again, same work
+    it, stop = int(key[2]), int(key[4])
+    passes = it + (stop == 0)
+    assert passes > 1
+    per_pass, before = PER_PASS[grower]
+    want = {k: passes * per_pass.get(k, 0) + before.get(k, 0)
+            for k in launched}
+    assert launched == want
+    assert (reads, replays) == (passes + 1, passes - 1)
+    assert captures == (2 if grower == "fused" else 1)
+
+
+@pytest.mark.gpu
+def test_graph_driven_grower_stops_before_capture(cuda):
+    """A seed at the size cap reads stop once and captures nothing; an
+    iteration cap of 1 runs the eager iteration alone."""
+    vol, seed = tube_phantom((48, 48, 48))
+    for kw, reads in (({"max_segment_size": 27}, 1), ({"iter_max": 1}, 2)):
+        l0 = _loop_counts()
+        res = rgx.region_grow_fused(torch.from_numpy(vol).to(cuda),
+                                    torch.from_numpy(seed).to(cuda), **kw)
+        assert int(res.iterations) == reads - 1
+        assert [a - b for a, b in zip(_loop_counts(), l0)] == [reads, 0, 0]
+
+
+@pytest.mark.gpu
+def test_graph_loop_raises_when_a_step_cannot_be_captured(cuda):
+    """No fallback to the eager loop: a step that reads the device on the
+    host cannot be captured, and the loop raises."""
+    stop = torch.full((), -1, dtype=torch.int32, device=cuda)
+
+    def step():
+        int(stop + 0)                  # a host read: refused in capture
+
+    with pytest.raises(RuntimeError):
+        grow_loop.graph_loop([step], stop)
