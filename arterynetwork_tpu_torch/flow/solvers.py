@@ -33,6 +33,19 @@ So the host reads one flag per Newton step for the whole batch, and CG
 reads its flags every ``_CG_CHECK_EVERY`` steps (frozen rows make the
 extra steps no-ops).
 
+The JAX package runs the whole solve as one device program (``jit``,
+the Newton and line-search ``while_loop``s, CG's, the ``scan``s of the
+restarts and the refinement).  Here each Newton step, CG block (with
+its set-up and its end, the Newton step's head and tail) and
+refinement step is written once, as a step that updates state made
+before the loop in place and sets an int32 ``stop`` on the device, and
+runs through ops/grow_loop.py: on a card a step's first run is eager,
+its second is captured as a CUDA graph and later ones are replays (a
+batch's LU runs eagerly between two graphs: ``lu_steps``); on the CPU
+the same steps run eagerly.  The host reads the same flags either way,
+through a pinned word on the card.  Restarts draw their scales eagerly
+and replay the same graphs; the final flows run once, eagerly.
+
 Comparisons against Python constants keep the system's dtype (a Python
 float meets an f32 tensor as f32), as the JAX reference's weak typing
 does, so an f32 solve takes the same decisions.
@@ -51,9 +64,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops import grow_loop
 from .physics import edge_admittance, velocity_from_flow
 from .segment_sum import edge_plan, segment_sum
 from .system import FlowSystem
+from .tree_solver import laplacian_tree_steps, lu_steps
 
 _DP_EPS = 1e-9  # Pa; regularizes dQ/d(dP) at dP = 0
 _LS_STEPS = 20  # line-search candidates 1, 1/2, ..., 2^-19 (alpha > 1e-6)
@@ -74,19 +89,17 @@ class SolveStats:
     """Counters a caller may pass to a solve (``stats=``).
 
     ``host_reads``: device-to-host reads the solve made (flags and the
-    final iteration count); ``linear_solves``: linear solves (one per
-    Newton and refinement step); ``cg_steps``: per-row CG iterations,
-    summed over the CG solves (None until a CG solve ran)."""
+    final iteration count); ``linear_solves``: linear solves that ran
+    (one per Newton and refinement step); ``cg_steps``: per-row CG
+    iterations, summed over the CG solves (None until a CG solve ran);
+    on a card, ``captures``: CUDA graphs captured, ``replays``: graph
+    replays, ``capture_s``: seconds spent capturing."""
     host_reads: int = 0
     linear_solves: int = 0
     cg_steps: Optional[torch.Tensor] = None
-
-
-def _read(flag, stats):
-    """One device-to-host read of a flag, counted in ``stats``."""
-    if stats is not None:
-        stats.host_reads += 1
-    return bool(flag)
+    captures: int = 0
+    replays: int = 0
+    capture_s: float = 0.0
 
 
 def _two_sum(a, b):
@@ -111,11 +124,15 @@ def _signed_flow_and_weight(dp, adm, k):
     return q, q_over_dp
 
 
-def _dense_laplacian_solve(system: FlowSystem, w, rhs):
-    """Laplacian(w) x = rhs by LU; w f[E] and rhs f[M], or f[T, E] and
-    f[T, M] for T systems on one graph (weights beyond E ignored)."""
+def _dense_laplacian_steps(system: FlowSystem, w, rhs, split=False):
+    """Laplacian(w) x = rhs by LU, as part of a step that is a generator
+    (``x = yield from ...``; ``split`` as for ``lu_steps``); w f[E] and
+    rhs f[M], or f[T, E] and f[T, M] for T systems on one graph (weights
+    beyond E ignored)."""
     if w.dim() == 1:
-        return _dense_laplacian_solve(system, w[None], rhs[None])[0]
+        x = yield from _dense_laplacian_steps(system, w[None], rhs[None],
+                                              split)
+        return x[0]
     M, E, T = system.num_unknown_pressures, system.num_edges, w.shape[0]
     w = w[:, :E]
     # L's nonzeros summed in the reference's order, then placed
@@ -125,64 +142,84 @@ def _dense_laplacian_solve(system: FlowSystem, w, rhs):
     eye = torch.eye(M, dtype=w.dtype, device=w.device)
     A = (L.view(T, M, M)
          + eye * (1e-12 * w.amax(dim=1))[:, None, None])
-    return torch.linalg.solve_ex(A, rhs)[0]     # no host sync on an error
+    return (yield from lu_steps(A, rhs, split))
 
 
-def _cg_laplacian_solve(system: FlowSystem, w, rhs, tol=None, maxiter=None,
-                        stats: Optional[SolveStats] = None):
-    """Matrix-free CG on the symmetrically diagonal-scaled Laplacian.
+class _CG:
+    """Matrix-free CG on the symmetrically diagonal-scaled Laplacian, on
+    state made once for T rows: ``begin(w, rhs)`` sets a solve up,
+    ``run(loop)`` takes its steps, ``result()`` is its solution.
 
     Explicit D^-1/2 L D^-1/2 scaling (rather than Jacobi preconditioning
     alone) keeps the iteration well-behaved in f32: Hazen-Williams tangent
     conductances span ~7 orders of magnitude across a deep arterial tree.
 
     The iteration is JAX's ``jax.scipy.sparse.linalg.cg`` (x0 = 0, no
-    preconditioner): it stops when gamma = r.r <= tol^2 b.b or after
-    ``maxiter`` steps, so it takes the same steps.  w f[E] and rhs f[M],
-    or f[T, E] and f[T, M]: each row stops on its own and is frozen by a
-    select; the host reads the flags every ``_CG_CHECK_EVERY`` steps.
-    """
-    if w.dim() == 1:
-        return _cg_laplacian_solve(system, w[None], rhs[None], tol, maxiter,
-                                   stats)[0]
-    M, E, T = system.num_unknown_pressures, system.num_edges, w.shape[0]
-    slot = system.node_unknown_index
-    hu = slot[system.head]
-    tu = slot[system.tail]
-    w = w[:, :E]
-    dtype = w.dtype
-    div = edge_plan(system, "div")
+    preconditioner): a row stops when gamma = r.r <= tol^2 b.b or after
+    ``maxiter`` steps, so it takes the same steps, and is frozen by a
+    select while the others go on.  The steps run in blocks of
+    ``_CG_CHECK_EVERY`` (a block past ``maxiter`` changes nothing: a row
+    still active has taken every step), and the host reads ``stop``
+    (-1 while a row is active) after ``begin`` and after each block
+    that ends before ``maxiter``."""
 
-    if tol is None:
-        # inexact Newton: loose inner solves converge better in f32
-        tol = 1e-4 if dtype == torch.float32 else 1e-12
-    if maxiter is None:
-        maxiter = min(8 * M + 64, 192 if dtype == torch.float32 else 2048)
+    def __init__(self, system: FlowSystem, T, dtype, tol=None, maxiter=None):
+        M, E = system.num_unknown_pressures, system.num_edges
+        if tol is None:
+            # inexact Newton: loose inner solves converge better in f32
+            tol = 1e-4 if dtype == torch.float32 else 1e-12
+        if maxiter is None:
+            maxiter = min(8 * M + 64, 192 if dtype == torch.float32 else 2048)
+        self.tol, self.maxiter = tol, maxiter
+        self.ridge = 1e-7 if dtype == torch.float32 else 1e-13
+        slot = system.node_unknown_index
+        self.hu, self.tu = slot[system.head], slot[system.tail]
+        self.diag = edge_plan(system, "diag")
+        self.div = edge_plan(system, "div")
+        dev = system.device
+        self.w = torch.zeros(T, E, dtype=dtype, device=dev)
+        self.dinv_sqrt, self.x, self.r, self.p = (
+            torch.zeros(T, M, dtype=dtype, device=dev) for _ in range(4))
+        # D^-1/2 and a 0 for the fixed nodes' slot M
+        self.ds_pad = torch.zeros(T, M + 1, dtype=dtype, device=dev)
+        self.zero = torch.zeros(T, 1, dtype=dtype, device=dev)
+        self.gamma, self.atol2 = (torch.zeros(T, dtype=dtype, device=dev)
+                                  for _ in range(2))
+        self.k = torch.zeros(T, dtype=torch.int32, device=dev)
+        self.stop = torch.zeros((), dtype=torch.int32, device=dev)
 
-    diag = segment_sum(edge_plan(system, "diag"), w)
-    dinv_sqrt = torch.rsqrt(torch.clamp(diag, min=1e-38))
-    zero = w.new_zeros(T, 1)
-    ds_pad = torch.cat([dinv_sqrt, zero], dim=1)
-    ridge = 1e-7 if dtype == torch.float32 else 1e-13
+    def begin(self, w, rhs):
+        self.w.copy_(w[:, :self.w.shape[1]])
+        diag = segment_sum(self.diag, self.w)
+        self.dinv_sqrt.copy_(torch.rsqrt(torch.clamp(diag, min=1e-38)))
+        self.ds_pad[:, :-1].copy_(self.dinv_sqrt)
+        b = self.dinv_sqrt * rhs
+        self.x.zero_()
+        self.r.copy_(b)
+        self.p.copy_(b)
+        self.gamma.copy_((b * b).sum(dim=1))
+        self.atol2.copy_(torch.clamp(self.tol ** 2 * (b * b).sum(dim=1),
+                                     min=0.0))
+        self.k.zero_()
+        self._set_stop()
 
-    def matvec(y):
+    def _active(self):
+        return (self.gamma > self.atol2) & (self.k < self.maxiter)
+
+    def _set_stop(self):
+        self.stop.copy_(torch.where(self._active().any(), -1, 0))
+
+    def _matvec(self, y):
         # x = D^-1/2 y; compute D^-1/2 L x
-        xp = ds_pad * torch.cat([y, zero], dim=1)
-        dx = xp.index_select(1, hu) - xp.index_select(1, tu)
-        return dinv_sqrt * segment_sum(div, w * dx) + ridge * y
+        xp = self.ds_pad * torch.cat([y, self.zero], dim=1)
+        dx = xp.index_select(1, self.hu) - xp.index_select(1, self.tu)
+        return (self.dinv_sqrt * segment_sum(self.div, self.w * dx)
+                + self.ridge * y)
 
-    b = dinv_sqrt * rhs
-    x = torch.zeros_like(b)
-    r = b
-    p = r
-    gamma = (r * r).sum(dim=1)
-    atol2 = torch.clamp(tol ** 2 * (b * b).sum(dim=1), min=0.0)
-    k = torch.zeros(T, dtype=torch.int32, device=w.device)
-    active = (gamma > atol2) & (k < maxiter)
-    for n in range(maxiter):
-        if n % _CG_CHECK_EVERY == 0 and not _read(active.any(), stats):
-            break
-        Ap = matvec(p)
+    def _step(self):
+        active = self._active()
+        x, r, p, gamma = self.x, self.r, self.p, self.gamma
+        Ap = self._matvec(p)
         alpha = gamma / (p * Ap).sum(dim=1)
         x_new = x + alpha[:, None] * p
         r_new = r - alpha[:, None] * Ap
@@ -190,15 +227,66 @@ def _cg_laplacian_solve(system: FlowSystem, w, rhs, tol=None, maxiter=None,
         beta = gamma_new / gamma
         p_new = r_new + beta[:, None] * p
         keep = active[:, None]
-        x = torch.where(keep, x_new, x)
-        r = torch.where(keep, r_new, r)
-        p = torch.where(keep, p_new, p)
-        gamma = torch.where(active, gamma_new, gamma)
-        k = k + active
-        active = (gamma > atol2) & (k < maxiter)
+        torch.where(keep, x_new, x, out=x)
+        torch.where(keep, r_new, r, out=r)
+        torch.where(keep, p_new, p, out=p)
+        torch.where(active, gamma_new, gamma, out=gamma)
+        self.k.add_(active)
+
+    def block(self):
+        for _ in range(_CG_CHECK_EVERY):
+            self._step()
+        self._set_stop()
+
+    def run(self, loop):
+        n = 0
+        while n < self.maxiter and loop.read(self.stop) < 0:
+            loop.run("cg block", self.block)
+            n += _CG_CHECK_EVERY
+
+    def result(self, steps=None):
+        """The solution; adds each row's steps to ``steps``, if given."""
+        if steps is not None:
+            steps.add_(self.k)
+        return self.dinv_sqrt * self.x
+
+
+def _cg_laplacian_solve(system: FlowSystem, w, rhs, tol=None, maxiter=None,
+                        stats: Optional[SolveStats] = None):
+    """Laplacian(w) x = rhs by ``_CG``, on its own: w f[E] and rhs f[M],
+    or f[T, E] and f[T, M]."""
+    if w.dim() == 1:
+        return _cg_laplacian_solve(system, w[None], rhs[None], tol, maxiter,
+                                   stats)[0]
+    T = w.shape[0]
+    cg = _CG(system, T, w.dtype, tol, maxiter)
+    loop = grow_loop.loop_for(system.device)
+    with loop.stream():
+        cg.begin(w, rhs)
+        cg.run(loop)
+    steps = torch.zeros(T, dtype=torch.int32, device=w.device)
+    x = cg.result(steps)
     if stats is not None:
-        stats.cg_steps = k if stats.cg_steps is None else stats.cg_steps + k
-    return dinv_sqrt * x
+        _add_loop_counts(stats, loop)
+        stats.cg_steps = (steps if stats.cg_steps is None
+                          else stats.cg_steps + steps)
+    return x
+
+
+def _add_loop_counts(stats: SolveStats, loop):
+    stats.host_reads += loop.reads
+    stats.captures += loop.captures
+    stats.replays += loop.replays
+    stats.capture_s += loop.capture_s
+
+
+def _cached_plans(system: FlowSystem, plan):
+    """What the solve's plan caches hold: the system's and the
+    elimination plan's plans, and each plan's signs by dtype."""
+    plans = [p for s in ([system.plans] if plan is None
+                         else [system.plans, plan.plans])
+             for _, p in s.values()]
+    return plans + [t for p in plans for t in p.signs.values()]
 
 
 def _as_batch(system: FlowSystem) -> FlowSystem:
@@ -334,28 +422,23 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
             linear_solver = "tree"
         else:
             linear_solver = "dense" if M <= 4096 else "cg"
+    # a batch's LU runs between the graphs of a step (lu_steps)
+    split = T > 1
+    cg = None
     if linear_solver == "tree":
-        from .tree_solver import solve_laplacian_tree
-
         if plan is None:
             raise ValueError("linear_solver='tree' needs an EliminationPlan "
                              "(flow.tree_solver.plan_elimination)")
 
-        def solve_fn(w, rhs):
-            return solve_laplacian_tree(system, plan, w, rhs)
+        def solve(w, rhs):
+            return laplacian_tree_steps(system, plan, w, rhs, split)
     elif linear_solver == "dense":
-        def solve_fn(w, rhs):
-            return _dense_laplacian_solve(system, w, rhs)
+        def solve(w, rhs):
+            return _dense_laplacian_steps(system, w, rhs, split)
     elif linear_solver == "cg":
-        def solve_fn(w, rhs):
-            return _cg_laplacian_solve(system, w, rhs, stats=stats)
+        cg = _CG(system, T, dtype)
     else:
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
-
-    def linear_solve(w, rhs):
-        if stats is not None:
-            stats.linear_solves += 1
-        return solve_fn(w, rhs)
 
     def full(p, fixed):
         pad = p.new_zeros(p.shape[:-1] + (1,))
@@ -376,101 +459,160 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
                           dtype=dtype, device=device)
     rows = torch.arange(T, device=device)
 
-    def solve_from(p):
-        """Newton with a backtracking line search on the residual norm,
-        every row on its own; returns (p, residual norm, iterations)."""
-        rn = node_residual(p)[0].abs().amax(dim=-1)
-        it = torch.zeros(T, dtype=torch.int32, device=device)
-        stalled = torch.zeros(T, dtype=torch.bool, device=device)
-        while True:
-            active = (rn > tol) & (it < max_iter) & ~stalled
-            if not _read(active.any(), stats):
-                return p, rn, it
-            r, _, w = node_residual(p)
-            # r = inflow - outflow, so dr/dp = -Laplacian(w); the update
-            # direction solves Laplacian(w) step = +r.
-            step = linear_solve(w, r)
-            rn0 = r.abs().amax(dim=-1)
-            cand = p[:, None, :] + alphas[None, :, None] * step[:, None, :]
-            rn_c = node_residual(cand, fixed[:, None], adm[:, None],
-                                 k[:, None])[0].abs().amax(dim=-1)
-            good = rn_c[:, :_LS_STEPS] < rn0[:, None]
-            improved = good.any(dim=1)
-            first = torch.where(improved, good.to(torch.uint8).argmax(dim=1),
-                                _LS_STEPS)
-            rn_new = rn_c[rows, first]
-            # stalled: the line search found no improving step (numerical
-            # floor reached) — stop instead of burning iterations
-            stalled_new = ~improved | (rn_new >= rn0 * (1.0 - 1e-6))
-            p = torch.where(active[:, None], cand[rows, first], p)
-            rn = torch.where(active, rn_new, rn)
-            stalled = torch.where(active, stalled_new, stalled)
-            it = it + active
-
-    if M > 0:
-        p_unknown, rn, it = solve_from(p_init)
-    else:
-        p_unknown = p_init
-        rn = torch.zeros(T, dtype=dtype, device=device)
-        it = torch.zeros(T, dtype=torch.int32, device=device)
-
-    if restarts and M > 0:
-        # Multi-start escape — the robustness slot the reference fills
-        # with scipy basinhopping (fluidSimulation.py:1746-1752,
-        # 1876-1878).  The trigger sits above the dtype's normal stall
-        # floor, so a healthy solve never pays a restart.
-        trigger = max(tol, 1e-8 if dtype == torch.float32 else 1e-12)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(restarts))
-        for _ in range(restarts):
-            stuck = rn > trigger
-            if not _read(stuck.any(), stats):
-                continue
-            scale = torch.rand(p_init.shape, generator=gen, dtype=dtype,
-                               device=device) + 0.5
-            p2, rn2, it2 = solve_from(p_init * scale)
-            better = stuck & (rn2 < rn)
-            p_unknown = torch.where(better[:, None], p2, p_unknown)
-            rn = torch.where(better, rn2, rn)
-            it = it + torch.where(stuck, it2, 0)
-
     if refine_steps is None:
         refine_steps = 2 if dtype == torch.float32 else 0
-
-    p_lo = torch.zeros_like(p_unknown)
     refine = bool(refine_steps) and M > 0
+    inv_k = 1.0 / k
 
     def full_lo(p_lo):
         return full(p_lo, torch.zeros((), dtype=dtype, device=device))
 
+    def ds_residual(p_hi, p_lo):
+        """Residual with the pressure drop formed error-free."""
+        pf_hi = full(p_hi, fixed)
+        pf_lo = full_lo(p_lo)
+        s, e = _two_sum(pf_hi[:, head], -pf_hi[:, tail])
+        e = e + (pf_lo[:, head] - pf_lo[:, tail])
+        mag = torch.clamp(torch.abs(s), min=_DP_EPS)
+        w = adm ** inv_k * mag ** (inv_k - 1.0)
+        q_hi = w * s
+        q_lo = (w * inv_k) * e   # first order: dq/d(dp) = w/k
+        return (segment_sum(net_plan, q_hi)
+                + segment_sum(net_plan, q_lo)), w
+
+    # the state one step hands to the next, written in place: pressures
+    # (and their low part in the refinement), residual norm, iterations,
+    # stalled rows, the residual norm before the step and stop (-1 while
+    # a row is active)
+    p = p_init.clone()
+    p_lo = torch.zeros_like(p)
+    rn, rn0 = (torch.zeros(T, dtype=dtype, device=device) for _ in range(2))
+    it = torch.zeros(T, dtype=torch.int32, device=device)
+    stalled = torch.zeros(T, dtype=torch.bool, device=device)
+    stop = torch.zeros((), dtype=torch.int32, device=device)
+    cg_steps = (None if cg is None or stats is None
+                else torch.zeros(T, dtype=torch.int32, device=device))
+    solves0 = 0 if stats is None else stats.linear_solves
+
+    def count_solve():
+        if stats is not None:
+            stats.linear_solves += 1
+
+    def newton_active():
+        return (rn > tol) & (it < max_iter) & ~stalled
+
+    def set_stop():
+        stop.copy_(torch.where(newton_active().any(), -1, 0))
+
+    def newton_head():
+        count_solve()
+        r, _, w = node_residual(p)
+        rn0.copy_(r.abs().amax(dim=-1))
+        # r = inflow - outflow, so dr/dp = -Laplacian(w); the update
+        # direction solves Laplacian(w) step = +r.
+        return w, r
+
+    def newton_tail(step):
+        active = newton_active()
+        cand = p[:, None, :] + alphas[None, :, None] * step[:, None, :]
+        rn_c = node_residual(cand, fixed[:, None], adm[:, None],
+                             k[:, None])[0].abs().amax(dim=-1)
+        good = rn_c[:, :_LS_STEPS] < rn0[:, None]
+        improved = good.any(dim=1)
+        first = torch.where(improved, good.to(torch.uint8).argmax(dim=1),
+                            _LS_STEPS)
+        rn_new = rn_c[rows, first]
+        # stalled: the line search found no improving step (numerical
+        # floor reached) — stop instead of burning iterations
+        stalled_new = ~improved | (rn_new >= rn0 * (1.0 - 1e-6))
+        torch.where(active[:, None], cand[rows, first], p, out=p)
+        torch.where(active, rn_new, rn, out=rn)
+        torch.where(active, stalled_new, stalled, out=stalled)
+        it.add_(active)
+        set_stop()
+
+    def refine_head():
+        count_solve()
+        r, w = ds_residual(p, p_lo)
+        # tangent weight dq/d(dp) = w/k: at the converged point no
+        # k-th-root modes are active, so these steps contract
+        # quadratically instead of at the secant ~(1-1/k) rate
+        return w * inv_k, r
+
+    def refine_tail(step):
+        hi, err = _two_sum(p, step)
+        lo = p_lo + err
+        hi, lo = _two_sum(hi, lo)       # renormalize the pair
+        p.copy_(hi)
+        p_lo.copy_(lo)
+
+    def iterate(name, head, tail):
+        """One step with a linear solve: ``head()`` -> (w, rhs), then
+        ``tail(x)``.  With CG three graphs, and CG's blocks between."""
+        if cg is None:
+            def step():
+                tail((yield from solve(*head())))
+            loop.run(name, step)
+        else:
+            loop.run(name + " head", lambda: cg.begin(*head()))
+            cg.run(loop)
+            loop.run(name + " tail", lambda: tail(cg.result(cg_steps)))
+
+    def solve_from(p0):
+        """Newton with a backtracking line search on the residual norm,
+        every row on its own, from p0 -> the state above."""
+        p.copy_(p0)
+        rn.copy_(node_residual(p)[0].abs().amax(dim=-1))
+        it.zero_()
+        stalled.zero_()
+        set_stop()
+        while loop.read(stop) < 0:
+            iterate("newton", newton_head, newton_tail)
+
+    loop = grow_loop.loop_for(
+        device, [] if stats is None else [(stats, "linear_solves")],
+        lambda: _cached_plans(system, plan))
+    with loop.stream():
+        if M > 0:
+            solve_from(p_init)
+
+        if restarts and M > 0:
+            # Multi-start escape — the robustness slot the reference
+            # fills with scipy basinhopping (fluidSimulation.py:1746-1752,
+            # 1876-1878).  The trigger sits above the dtype's normal stall
+            # floor, so a healthy solve never pays a restart.
+            trigger = max(tol, 1e-8 if dtype == torch.float32 else 1e-12)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(restarts))
+            best_p, best_rn, best_it = p.clone(), rn.clone(), it.clone()
+            for _ in range(restarts):
+                stuck = best_rn > trigger
+                if not loop.read(stuck.any().to(torch.int32)):
+                    continue
+                scale = torch.rand(p_init.shape, generator=gen, dtype=dtype,
+                                   device=device) + 0.5
+                solve_from(p_init * scale)
+                better = stuck & (rn < best_rn)
+                best_p = torch.where(better[:, None], p, best_p)
+                best_rn = torch.where(better, rn, best_rn)
+                best_it = best_it + torch.where(stuck, it, 0)
+            p.copy_(best_p)
+            rn.copy_(best_rn)
+            it.copy_(best_it)
+
+        if refine:
+            for _ in range(refine_steps):
+                iterate("refine", refine_head, refine_tail)
+
+    if stats is not None:
+        _add_loop_counts(stats, loop)
+        if cg_steps is not None and stats.linear_solves > solves0:
+            stats.cg_steps = (cg_steps if stats.cg_steps is None
+                              else stats.cg_steps + cg_steps)
     if refine:
-        inv_k = 1.0 / k
+        rn = ds_residual(p, p_lo)[0].abs().amax(dim=1)
 
-        def ds_residual(p_hi, p_lo):
-            """Residual with the pressure drop formed error-free."""
-            pf_hi = full(p_hi, fixed)
-            pf_lo = full_lo(p_lo)
-            s, e = _two_sum(pf_hi[:, head], -pf_hi[:, tail])
-            e = e + (pf_lo[:, head] - pf_lo[:, tail])
-            mag = torch.clamp(torch.abs(s), min=_DP_EPS)
-            w = adm ** inv_k * mag ** (inv_k - 1.0)
-            q_hi = w * s
-            q_lo = (w * inv_k) * e   # first order: dq/d(dp) = w/k
-            return (segment_sum(net_plan, q_hi)
-                    + segment_sum(net_plan, q_lo)), w
-
-        for _ in range(refine_steps):
-            r, w = ds_residual(p_unknown, p_lo)
-            # tangent weight dq/d(dp) = w/k: at the converged point no
-            # k-th-root modes are active, so these steps contract
-            # quadratically instead of at the secant ~(1-1/k) rate
-            step = linear_solve(w * inv_k, r)
-            hi, err = _two_sum(p_unknown, step)
-            lo = p_lo + err
-            p_unknown, p_lo = _two_sum(hi, lo)   # renormalize the pair
-        rn = ds_residual(p_unknown, p_lo)[0].abs().amax(dim=1)
-
-    p_full = full(p_unknown, fixed)
+    p_full = full(p, fixed)
     dp = p_full[:, head] - p_full[:, tail]
     if refine:
         pf_lo = full_lo(p_lo)

@@ -11,7 +11,10 @@ Zero fill-in, exact in one pass.
 The elimination structure depends only on the graph, so it is planned
 once on the host (`plan_elimination`) and reused for every Newton
 iteration with different weights.  The rounds run as a Python loop of
-gathers and ``index_add_`` on the system's device.
+gathers and ``index_add_`` on the system's device; on a card the Newton
+step that holds them is captured once as a CUDA graph and replayed
+(flow/solvers.py), the counterpart of the JAX package's ``lax.scan``
+over the rounds.
 
 Two leaves of one round may share a parent, and ``index_add_`` with a
 repeated index adds in no fixed order on a card.  So each round's
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.grow_loop import run_eagerly
 from .segment_sum import cached, edge_plan, plan_segment_sum, segment_sum
 from .system import FlowSystem
 
@@ -158,6 +162,24 @@ def plan_elimination(system: FlowSystem) -> Optional[EliminationPlan]:
         num_rounds=R, core_size=C)
 
 
+def lu_steps(A, b, split=False):
+    """A x = b by LU (``torch.linalg.solve_ex``: no host sync on an
+    error), as part of a step that is a generator (ops/grow_loop.py):
+    ``x = yield from lu_steps(A, b, split)``.
+
+    ``split``: the LU is yielded, to run eagerly between the graphs of
+    the step's parts before and after it.  A CUDA graph captures an
+    unbatched LU (cuSOLVER's) but not the batched one that torch takes
+    for a few hundred unknowns or more (MAGMA's; on an H100 with torch
+    2.11, T = 3 and 8 rows of 513 unknowns were refused, of 100
+    captured)."""
+    if not split:
+        return torch.linalg.solve_ex(A, b)[0]
+    x = torch.empty_like(b)
+    yield lambda: x.copy_(torch.linalg.solve_ex(A, b)[0])
+    return x
+
+
 def solve_laplacian_tree(system: FlowSystem, plan: EliminationPlan,
                          w, rhs):
     """Solve Laplacian(w) x = rhs exactly via the elimination plan.
@@ -167,8 +189,18 @@ def solve_laplacian_tree(system: FlowSystem, plan: EliminationPlan,
     would be alone).  Entries of w beyond the system's E edges are
     ignored.  The Laplacian diagonal includes edges to fixed-pressure
     nodes (their unknowns were substituted into the rhs by the caller)."""
+    return run_eagerly(laplacian_tree_steps(system, plan, w, rhs))
+
+
+def laplacian_tree_steps(system: FlowSystem, plan: EliminationPlan, w, rhs,
+                         split=False):
+    """``solve_laplacian_tree`` as part of a step that is a generator:
+    ``x = yield from laplacian_tree_steps(...)``; ``split`` as for
+    ``lu_steps`` (the loop core's LU)."""
     if w.dim() == 1:
-        return solve_laplacian_tree(system, plan, w[None], rhs[None])[0]
+        x = yield from laplacian_tree_steps(system, plan, w[None],
+                                            rhs[None], split)
+        return x[0]
     M = system.num_unknown_pressures
     E = system.num_edges
     T = w.shape[0]
@@ -208,9 +240,10 @@ def solve_laplacian_tree(system: FlowSystem, plan: EliminationPlan,
             1, core.slots, segment_sum(core, torch.cat([dcore, w], dim=1)))
         ridge = 1e-12 * w.amax(dim=1) + 1e-30
         eye = torch.eye(C, dtype=dtype, device=w.device)
-        xc = torch.linalg.solve_ex(L.view(T, C, C) + eye * ridge[:, None,
-                                                                   None],
-                                   db[T:].index_select(1, plan.core_nodes))[0]
+        xc = yield from lu_steps(L.view(T, C, C) + eye * ridge[:, None,
+                                                               None],
+                                 db[T:].index_select(1, plan.core_nodes),
+                                 split)
         x[:, plan.core_nodes] = xc
 
     # ---- back substitution ----

@@ -162,6 +162,10 @@ Phases, each printing its own lines:
                vesselness's peak memory with its per-voxel passes in one
                slab and in slabs (bit-equal), whether the ground truth is
                feasible.
+ Every flow solve from here on, and pipeline_512's and speck_pipeline's
+ flow stage, runs driven by captured CUDA graphs (flow/solvers.py on
+ ops/grow_loop.py): each must run in a graph loop that replayed graphs
+ if it ran a step more than once.
  11. flow_determinism — each solve run twice on the card gives the
                same bits: pipeline_512's f32 solve, the 16k tree's f32
                tree and CG solves, GBMTest5's T = 8 f64 batch (the flow
@@ -170,18 +174,25 @@ Phases, each printing its own lines:
                13, 8,190 unknowns) solved f32 at tol 1e-9 with "auto" and
                the elimination plan (tree) and with "cg", f64 "cg" at the
                default tol 1e-14, and the flagship entry (depth 9, f32
-               CG): ms per solve (median of 3 after a warm-up), Newton
-               iterations, CG steps per linear solve, host reads per
-               solve, max relative pressure error against the ground
+               CG): ms per solve (median of 3 after a warm-up), graph-
+               driven and in the eager loop (eager_loop()), which must
+               agree bit for bit with the same host reads, linear solves
+               and CG steps; Newton iterations, CG steps per linear
+               solve, host reads, graphs captured, replays and capture
+               seconds per solve, the idle share of a traced run (but CG
+               f64's), max relative pressure error against the ground
                truth (<= 1e-6 f32, <= 1e-9 f64);
  12. longitudinal — GBMTest5 on the depth-13 tree, T = 8, f64, "auto"
-               with the plan: the batched solve against T unbatched
-               solves (same iterations, pressures within 1e-12), every
-               residual < 1e-10 m^3/s, row 0 on the ground truth;
+               with the plan: the batched solve graph-driven and in the
+               eager loop (bit-equal, the same host reads), against T
+               unbatched solves (same iterations, pressures within
+               1e-12), every residual < 1e-10 m^3/s, row 0 on the ground
+               truth;
  13. studies — the study CLI's eight drivers at depth 10 (and gbm5 on
-               the Darcy-Weisbach network): seconds per driver, finite
-               outputs, the solver drivers equal to the port on the CPU
-               within 1e-9, pickles written and read back.
+               the Darcy-Weisbach network): seconds per driver, the
+               graphs its solves captured and replayed, finite outputs,
+               the solver drivers equal to the port on the CPU within
+               1e-9, pickles written and read back.
  14. figures — the CLI's study gbm5 and gbm5b (depth 10, T = 4) and
                morpho with its 13 figures on graph_path_512's bundle, on
                the card: seconds and figure files with their sizes (each
@@ -651,17 +662,20 @@ def phase_pipeline(phantom, raw, phase="pipeline_512", cfg=None, timed=3):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        result = run_pipeline(raw_volume=raw, config=cfg, device="cuda")
+        with solve_loops() as loops:
+            result = run_pipeline(raw_volume=raw, config=cfg, device="cuda")
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         n = frangi_response_max_.launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         launches.append(n)
+        graphs = _graph_solves(f"{phase} flow", loops)
         stages = ", ".join(f"{k} {v:.4f}" for k, v in
                            result["timings"].items())
         log(phase, f"run {i}{' (warm-up)' if i == 0 else ''}: "
             f"total {total:.4f} s; K1 launches {n}; peak device memory "
-            f"{peak:.0f} MiB; stages (s): {stages}")
+            f"{peak:.0f} MiB; stages (s): {stages}; flow solve graphs "
+            f"{graphs}")
         if i:
             runs["totals"].append(total)
             runs["timings"].append(dict(result["timings"]))
@@ -736,16 +750,53 @@ def loop_counts():
 
 @contextlib.contextmanager
 def eager_loop():
-    """Run the growers' steps in the eager host loop on the card too (the
-    loop, ``grow_loop.drive``, replays captured graphs for CUDA
-    tensors)."""
+    """Run the growers' steps and the flow solver's in the eager host
+    loop on the card too (their loops, ``grow_loop.drive`` and
+    ``grow_loop.loop_for``, replay captured graphs for CUDA tensors)."""
     loop = _ops("grow_loop")
-    drive = loop.drive
+    drive, loop_for = loop.drive, loop.loop_for
     loop.drive = loop.host_loop
+    loop.loop_for = lambda *args, **kw: loop.HostLoop()
     try:
         yield
     finally:
-        loop.drive = drive
+        loop.drive, loop.loop_for = drive, loop_for
+
+
+@contextlib.contextmanager
+def solve_loops():
+    """Collect the loop objects the flow solves inside make
+    (``grow_loop.loop_for``): a list, filled as they run."""
+    loop = _ops("grow_loop")
+    loop_for, made = loop.loop_for, []
+
+    def tracked(*args, **kw):
+        made.append(loop_for(*args, **kw))
+        return made[-1]
+
+    loop.loop_for = tracked
+    try:
+        yield made
+    finally:
+        loop.loop_for = loop_for
+
+
+def _graph_solves(label, loops):
+    """Fail unless every flow solve of ``loops`` ran in a GraphLoop and
+    each that ran a step more than once (a second Newton, CG or
+    refinement step) replayed captured graphs -> their counts."""
+    g = _ops("grow_loop").GraphLoop
+    counts = {"solves": len(loops),
+              "captures": sum(lp.captures for lp in loops),
+              "replays": sum(lp.replays for lp in loops),
+              "capture_s": sum(lp.capture_s for lp in loops),
+              "reads": sum(lp.reads for lp in loops)}
+    bad = [lp for lp in loops if not isinstance(lp, g) or (
+        max(lp.runs.values(), default=0) > 1 and not lp.replays)]
+    if bad or not loops:
+        raise SystemExit(f"{label}: {len(bad)} of {len(loops)} solves not "
+                         f"driven by captured graphs ({counts})")
+    return counts
 
 
 def _graph_driven(label, res, loops):
@@ -2938,9 +2989,38 @@ def _no_launches(phase):
         raise SystemExit(f"{phase}: kernel launches {counts}, expected none")
 
 
+def _solve_bits(sol):
+    """A solution's pressures, flows, residuals and iterations as bytes."""
+    import numpy as np
+    import torch
+
+    return b"".join(np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                    .tobytes() for x in (sol.pressure, sol.flow,
+                                         sol.residual_norm, sol.iterations))
+
+
+def _graph_driven_solve(label, same, stats, e_stats, iterations):
+    """Fail unless the graph-driven solve equals the eager loop's bit for
+    bit with its host reads, linear solves and CG steps, and replayed
+    captured graphs if a row took more than one Newton iteration."""
+    import numpy as np
+    import torch
+
+    steps = [None if s.cg_steps is None else s.cg_steps.tolist()
+             for s in (stats, e_stats)]
+    more = int(np.max(np.asarray(iterations.cpu() if torch.is_tensor(
+        iterations) else iterations))) > 1
+    if not (same and stats.host_reads == e_stats.host_reads
+            and stats.linear_solves == e_stats.linear_solves
+            and steps[0] == steps[1] and (stats.replays > 0 or not more)):
+        raise SystemExit(f"{label}: graph-driven and eager solves differ "
+                         f"(bit-equal {same}; {stats}; eager {e_stats})")
+
+
 def phase_flow_determinism(net512):
-    """Each flow solve run twice on the card, with no global switch, must
-    give the same bits (pressures, flows, residuals, iterations):
+    """Each flow solve run twice on the card, graph-driven, with no
+    global switch, must give the same bits (pressures, flows, residuals,
+    iterations):
     pipeline_512's f32 solve (its network and boundary, as run_pipeline
     solves it), the 16k tree's f32 solves with the elimination plan and
     with CG, and GBMTest5's T = 8 f64 batch on that tree.  (sharded_512's
@@ -2977,11 +3057,10 @@ def phase_flow_determinism(net512):
     }
     out = {"phase": "flow_determinism", "solves": {}}
     for name, fn in cases.items():
-        runs = [fn() for _ in range(2)]
-        bits = [b"".join(np.asarray(x.cpu() if torch.is_tensor(x) else x)
-                         .tobytes() for x in (s.pressure, s.flow,
-                                              s.residual_norm, s.iterations))
-                for s in runs]
+        with solve_loops() as loops:
+            runs = [fn() for _ in range(2)]
+        graphs = _graph_solves(f"flow_determinism {name}", loops)
+        bits = [_solve_bits(s) for s in runs]
         sol = runs[0]
         rec = {"bit_equal": bits[0] == bits[1],
                "rel_diff": _rel_diff(runs[0].pressure.cpu(),
@@ -2989,12 +3068,12 @@ def phase_flow_determinism(net512):
                "iterations": np.asarray(sol.iterations.cpu() if torch.is_tensor(
                    sol.iterations) else sol.iterations).tolist(),
                "max_residual_m3s": float(sol.residual_norm.max()),
-               "dtype": str(sol.pressure.dtype)}
+               "dtype": str(sol.pressure.dtype), "graphs": graphs}
         out["solves"][name] = rec
         log("flow_determinism", f"{name}: two runs bit-equal "
             f"{rec['bit_equal']} (rel diff {rec['rel_diff']:.3e}); "
             f"iterations {rec['iterations']}, max residual "
-            f"{rec['max_residual_m3s']:.3e} m^3/s")
+            f"{rec['max_residual_m3s']:.3e} m^3/s; graph-driven: {graphs}")
     _no_launches("flow_determinism")
     print(json.dumps(out), flush=True)
     if not all(r["bit_equal"] for r in out["solves"].values()):
@@ -3028,42 +3107,58 @@ def phase_flow_solvers():
         "cg_f64": (sys64, dict(linear_solver="cg"), 1e-9),
     }
     for name, (system, kw, limit) in cases.items():
-        sol, ms = _median_ms(lambda: solve_pressure_newton(
-            system, max_iter=60, **kw))
-        stats = SolveStats()
-
-        def counted():
+        def solve(stats=None):
             return solve_pressure_newton(system, max_iter=60, stats=stats,
                                          **kw)
 
-        # cg f64's ~100k ops would take the tracer tens of seconds to list
+        sol, ms = _median_ms(solve)
+        stats = SolveStats()            # counted untraced
+        solve(stats)
+        # cg f64's ~100k kernels would take the tracer tens of seconds to
+        # list
         wall, busy, idle = ((None,) * 3 if name == "cg_f64" else
-                            device_idle(counted))
-        if name == "cg_f64":
-            counted()
+                            device_idle(solve))
+        with eager_loop():
+            eager, eager_ms = _median_ms(solve)
+            e_stats = SolveStats()
+            solve(e_stats)
+        same = _solve_bits(sol) == _solve_bits(eager)
         p = sol.pressure.double().cpu().numpy()
         err = float(np.nanmax(np.abs(p - gt.pressure) / np.abs(gt.pressure)))
         finite = bool(torch.isfinite(sol.pressure).all()
                       and torch.isfinite(sol.flow).all())
         cg = (None if stats.cg_steps is None
               else int(stats.cg_steps.sum()) / stats.linear_solves)
-        rec = {"ms": ms, "newton_iterations": sol.iterations,
+        rec = {"ms": ms, "eager_loop_ms": eager_ms,
+               "newton_iterations": sol.iterations,
                "linear_solves": stats.linear_solves,
                "cg_steps_per_linear_solve": cg,
                "host_reads": stats.host_reads,
+               "eager_host_reads": e_stats.host_reads,
+               "captures": stats.captures, "replays": stats.replays,
+               "capture_s": stats.capture_s, "bit_equal_to_eager": same,
                "max_rel_pressure_err": err, "limit": limit,
                "residual_norm": float(sol.residual_norm), "finite": finite,
-               "traced_s": wall, "device_busy_s": busy, "device_idle": idle}
+               "traced_s": wall, "device_busy_s": busy, "device_idle": idle,
+               "device_idle_untraced": (None if busy is None
+                                        else 1 - busy / (ms / 1e3))}
         out["solves"][name] = rec
-        log("flow_solvers", f"{name}: {ms:.3f} ms per solve, {sol.iterations}"
-            f" Newton iterations, {stats.linear_solves} linear solves, CG "
-            f"steps per linear solve {cg}, {stats.host_reads} host reads, "
-            f"max rel pressure error {err:.3e} (limit {limit}); " + (
+        log("flow_solvers", f"{name}: {ms:.3f} ms per solve graph-driven "
+            f"(eager loop {eager_ms:.3f} ms), {sol.iterations} Newton "
+            f"iterations, {stats.linear_solves} linear solves, CG steps per "
+            f"linear solve {cg}, {stats.host_reads} host reads (eager "
+            f"{e_stats.host_reads}), graphs captured {stats.captures} in "
+            f"{stats.capture_s:.4f} s, replays {stats.replays}; bit-equal to "
+            f"the eager loop {same}; max rel pressure error {err:.3e} (limit "
+            f"{limit}); " + (
                 "not traced" if wall is None else f"traced {wall:.4f} s, "
-                f"device busy {busy:.4f} s ({idle:.1%} idle)"))
+                f"device busy {busy:.4f} s ({idle:.1%} idle; "
+                f"{rec['device_idle_untraced']:.1%} of the untraced median)"))
         if not (finite and err <= limit):
             raise SystemExit(f"flow_solvers {name}: error {err} > {limit} "
                              f"or non-finite")
+        _graph_driven_solve(f"flow_solvers {name}", same, stats, e_stats,
+                            sol.iterations)
     fwd, args = flagship.entry(device="cuda")
     (p, q), ms = _median_ms(lambda: fwd(*args))
     fsys, fgt = flagship.flagship_system(max_depth=9, device="cuda")
@@ -3136,11 +3231,19 @@ def phase_longitudinal():
     gt = create_ground_truth(net, option=2, rng=rng)
     (batch, prep_s) = _sync_s(lambda: build_timestep_batch(
         net, gt.pressure, radius_end, LONG_T, 1, partitions=parts))
-    sol, batched_ms = _median_ms(lambda: solve_timestep_batch(
-        net, batch, dtype=torch.float64, device="cuda"))
-    stats = SolveStats()                # counted in the traced run
-    wall, busy, idle = device_idle(lambda: solve_timestep_batch(
-        net, batch, dtype=torch.float64, device="cuda", stats=stats))
+    def batched(stats=None):
+        return solve_timestep_batch(net, batch, dtype=torch.float64,
+                                    device="cuda", stats=stats)
+
+    sol, batched_ms = _median_ms(batched)
+    stats = SolveStats()                # counted untraced
+    batched(stats)
+    wall, busy, idle = device_idle(batched)
+    with eager_loop():
+        eager, eager_ms = _median_ms(batched)
+        e_stats = SolveStats()
+        batched(e_stats)
+    same = _solve_bits(sol) == _solve_bits(eager)
     rows = []
     for t in range(LONG_T):
         net_t = net.replace(radius=batch["radius_m"][t] / net.spacing,
@@ -3169,22 +3272,34 @@ def phase_longitudinal():
            "batched_ms": batched_ms, "unbatched_rows_ms": rows_ms,
            "iterations": its, "row_iterations": row_its,
            "batched_host_reads": stats.host_reads,
+           "batched_eager_loop_ms": eager_ms,
+           "batched_eager_host_reads": e_stats.host_reads,
+           "batched_captures": stats.captures,
+           "batched_replays": stats.replays,
+           "batched_capture_s": stats.capture_s,
+           "batched_bit_equal_to_eager": same,
            "batched_traced_s": wall, "batched_device_busy_s": busy,
            "batched_device_idle": idle,
+           "batched_device_idle_untraced": 1 - busy / (batched_ms / 1e3),
            "max_residual_m3s": float(resid.max()),
            "row0_vs_ground_truth": bool(gt_ok),
            "max_rel_row_diff": row_rel, "finite": finite}
     log("longitudinal", f"T={LONG_T} on {net.num_edges} edges: batch prep "
-        f"{prep_s:.3f} s (host); batched solve {batched_ms:.3f} ms, "
-        f"{stats.host_reads} host reads, traced {wall:.4f} s with the "
-        f"device busy {busy:.4f} s ({idle:.1%} idle); {LONG_T} unbatched "
-        f"solves "
+        f"{prep_s:.3f} s (host); batched solve {batched_ms:.3f} ms "
+        f"graph-driven (eager loop {eager_ms:.3f} ms), {stats.host_reads} "
+        f"host reads (eager {e_stats.host_reads}), graphs captured "
+        f"{stats.captures} in {stats.capture_s:.4f} s, replays "
+        f"{stats.replays}, bit-equal to the eager loop {same}; traced "
+        f"{wall:.4f} s with the device busy {busy:.4f} s ({idle:.1%} idle; "
+        f"{1 - busy / (batched_ms / 1e3):.1%} of the untraced median); "
+        f"{LONG_T} unbatched solves "
         f"{rows_ms:.3f} ms; iterations {its} (rows alone {row_its}); max "
         f"residual {resid.max():.3e} m^3/s; row 0 on the ground truth "
         f"{gt_ok}; max rel diff batch vs rows {row_rel:.3e}")
     if not (finite and resid.max() < 1e-10 and gt_ok and its == row_its
             and row_rel <= 1e-12):
         raise SystemExit("longitudinal: a gate failed")
+    _graph_driven_solve("longitudinal", same, stats, e_stats, sol.iterations)
     _no_launches("longitudinal")
     print(json.dumps(out), flush=True)
     return out
@@ -3274,7 +3389,7 @@ def phase_studies():
 
     reset_counts()
     out = {"phase": "studies", "depth": STUDY_DEPTH, "seconds": {},
-           "cpu_seconds": {}, "max_rel_cpu": {}}
+           "cpu_seconds": {}, "max_rel_cpu": {}, "graphs": {}}
     meta = ("pickles", "keys", "pickle")
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build") as tmp:
@@ -3287,11 +3402,15 @@ def phase_studies():
                 return _drivers(net, parts, radius_end, rng, store, device,
                                 physics)[name]()
 
-            res, secs = _sync_s(lambda: run("cuda"))
+            with solve_loops() as loops:
+                res, secs = _sync_s(lambda: run("cuda"))
             out["seconds"][name] = secs
             if not _finite(res):
                 raise SystemExit(f"studies {name}: non-finite output")
             msg = f"{name}: {secs:.3f} s on the card"
+            if loops:           # distribute's fit runs no Newton solve
+                out["graphs"][name] = _graph_solves(f"studies {name}", loops)
+                msg += f" (flow solves graph-driven: {out['graphs'][name]})"
             if name in ("tp_fit", "gbm4", "gbm5", "gbm5_dw", "distribute"):
                 t0 = time.perf_counter()
                 ref = run("cpu")

@@ -12,7 +12,9 @@ Then tests pin which grower ``region_grow`` takes: f64 data stays on
 the f64 full-grid path, on the card too, equal to the CPU's result.  The
 last ones hold the growers' graph-driven loop on the card (each
 iteration a captured CUDA graph, replayed) to the eager loop, bit for
-bit, with the launches and stop reads one pass each makes.
+bit, with the launches and stop reads one pass each makes, and the
+flow solver's graph-driven loops (each Newton step, CG block and
+refinement step a captured graph) likewise, with its host reads.
 This file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch:
@@ -719,3 +721,106 @@ def test_graph_loop_raises_when_a_step_cannot_be_captured(cuda):
 
     with pytest.raises(RuntimeError):
         grow_loop.graph_loop([step], stop)
+
+
+# ----------------------------------------------------------------------
+# the flow solver's loops on the card: captured CUDA graphs, replayed
+# ----------------------------------------------------------------------
+def _flow_rows(depth, T, dtype, device, allow_merge=True):
+    """T rows on one graph (a merge-loop tree when ``allow_merge``): the
+    network, a Poiseuille (k = 1) copy, the network with other boundary
+    pressures -> (system, elimination plan); one row is unbatched."""
+    import dataclasses
+
+    from arterynetwork_tpu_torch.flow import (build_system,
+                                              create_ground_truth)
+    from arterynetwork_tpu_torch.flow.physics import poiseuille_equivalent_c
+    from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
+    from arterynetwork_tpu_torch.graphs import (generate_tree,
+                                                set_network_properties)
+
+    rng = np.random.default_rng(0)
+    net = set_network_properties(generate_tree(
+        max_depth=depth, allow_merge=allow_merge, rng=rng), k_value=1.852,
+        rng=rng)
+    rng = np.random.default_rng(9)
+    rows = []
+    for t in range(T):
+        n = net
+        if t == 1:
+            n = net.replace(c=poiseuille_equivalent_c(net.radius_m()),
+                            k=np.ones(net.num_edges))
+        gt = create_ground_truth(n, option=2, rng=np.random.default_rng(7))
+        bp = gt.pressure * (1.0 + 0.02 * t * rng.random(net.num_nodes))
+        rows.append(build_system(n, boundary_pressure=bp, dtype=dtype,
+                                 device=device))
+    plan = plan_elimination(rows[0])
+    if T == 1:
+        return rows[0], plan
+    stack = {f: torch.stack([getattr(s, f) for s in rows])
+             for f in ("radius_m", "c", "k", "node_fixed_pressure")}
+    return dataclasses.replace(rows[0], **stack), plan
+
+
+def _flow_solve(system, plan, solver):
+    from arterynetwork_tpu_torch.flow.solvers import (
+        SolveStats, solve_pressure_newton, solve_pressure_newton_batch)
+
+    stats = SolveStats()
+    kw = dict(linear_solver=solver, plan=plan if solver == "tree" else None,
+              stats=stats)
+    if system.node_fixed_pressure.dim() == 2:
+        sol = solve_pressure_newton_batch(system, **kw)
+    else:
+        sol = solve_pressure_newton(system, **kw)
+    torch.cuda.synchronize()
+    bits = [(t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t))
+            .tobytes() for t in (sol.pressure, sol.flow, sol.velocity,
+                                 sol.residual_norm, sol.iterations)]
+    return bits, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("solver", ["dense", "tree", "cg"])
+def test_graph_driven_solves_match_eager_loop(cuda, solver, dtype, T,
+                                              monkeypatch):
+    """Graph-driven and eager loops give the same bits (pressures, flows,
+    velocities, residuals, iterations) with the same host reads, linear
+    solves and CG steps; the graph run replays captured graphs, and a
+    second call captures anew and gives the same bits."""
+    system, plan = _flow_rows(7, T, dtype, cuda)
+    (a, sa), (b, sb) = (_flow_solve(system, plan, solver) for _ in range(2))
+    with monkeypatch.context() as m:
+        m.setattr(grow_loop, "loop_for",
+                  lambda *args, **kw: grow_loop.HostLoop())
+        eager, se = _flow_solve(system, plan, solver)
+    assert a == eager and b == a
+    for s in (sa, sb):
+        assert (s.host_reads, s.linear_solves) == (se.host_reads,
+                                                   se.linear_solves)
+        assert (s.cg_steps is None) == (se.cg_steps is None)
+        if s.cg_steps is not None:
+            assert torch.equal(s.cg_steps, se.cg_steps)
+        assert s.captures > 0 and s.replays > 0
+    assert (sa.captures, sa.replays) == (sb.captures, sb.replays)
+    assert se.captures == se.replays == 0
+
+
+@pytest.mark.gpu
+def test_graph_driven_batch_with_a_large_lu(cuda, monkeypatch):
+    """A batch's dense LU of ~1,000 unknowns (MAGMA's, which capture
+    refuses) runs between the two graphs of each Newton step: the same
+    bits and reads as the eager loop, two graphs per captured step."""
+    system, plan = _flow_rows(10, 3, torch.float64, cuda, allow_merge=False)
+    assert system.num_unknown_pressures > 512
+    graph, sg = _flow_solve(system, plan, "dense")
+    with monkeypatch.context() as m:
+        m.setattr(grow_loop, "loop_for",
+                  lambda *args, **kw: grow_loop.HostLoop())
+        eager, se = _flow_solve(system, plan, "dense")
+    assert graph == eager
+    assert sg.host_reads == se.host_reads
+    assert sg.captures == 2 and sg.replays % 2 == 0 and sg.replays > 0
