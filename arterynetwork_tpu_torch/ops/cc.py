@@ -6,7 +6,9 @@ skeletonization.py:108).  Every foreground voxel starts with its flat
 index as a label; each round takes the min label over the neighborhood
 (restricted to foreground), then pointer-jumps ``label <- label[label]``
 twice.  The rounds stop when nothing changes or at ``max_rounds``, as in
-the JAX package, so even an unconverged result equals its.
+the JAX package's ``lax.while_loop`` (arterynetwork_tpu/ops/cc.py:80), so
+even an unconverged result equals its; on a card each round is replayed
+from a captured CUDA graph (``ops/grow_loop``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import grow_loop
 from .region_grow import _as_device, _resolve_device
 
 # The labels are int32: each voxel's flat index, the background sentinel n
@@ -55,10 +58,16 @@ def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
 
     ``connectivity`` follows skimage: 1 = faces only, 2 = faces+edges,
     3 = faces+edges+corners (2 is approximated as 3, as in the JAX
-    package; the reference always uses maxHop=3).  The host reads one
-    flag per round; ``connected_components.rounds`` holds the rounds the
-    last call ran.  A volume of 2^31 - 1 voxels or more raises ValueError
-    before anything is allocated (``check_voxel_count``).
+    package; the reference always uses maxHop=3).  Each round updates
+    the labels, a round count and ``stop`` in place and runs in
+    ``grow_loop.loop_for(device)``: on a CUDA device a ``GraphLoop``
+    (the first round eager, the second captured as a CUDA graph, later
+    ones replayed).  The host reads ``stop`` once per round (the first
+    round's condition is known on the host).  The last call's counts are
+    ``connected_components.rounds``, ``.reads``, ``.captures``,
+    ``.replays`` and ``.capture_s``.  A volume of 2^31 - 1 voxels or more
+    raises ValueError before anything is allocated
+    (``check_voxel_count``).
     """
     check_voxel_count(mask.shape if hasattr(mask, "shape")
                       else np.shape(mask))
@@ -69,6 +78,10 @@ def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
     idx = torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
     big = torch.tensor(n, dtype=torch.int32, device=device)
     labels = torch.where(fg, idx, big)
+    padded = torch.full((n + 1,), n, dtype=torch.int32, device=device)
+    changed = torch.zeros((), dtype=torch.bool, device=device)
+    rounds, stop = (torch.zeros((), dtype=torch.int32, device=device)
+                    for _ in range(2))
 
     def propagate(lab):
         best = lab
@@ -81,22 +94,37 @@ def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
 
     def jump(lab):
         flat = lab.reshape(-1)
-        padded = torch.cat([flat, big.reshape(1)])
+        padded[:n].copy_(flat)
         return padded[torch.clamp_max(flat, n)].reshape(shape)
 
-    rounds = 0
-    while rounds < max_rounds:
+    def step():
         new = jump(jump(propagate(labels)))
-        changed = bool(torch.any(new != labels))
-        labels = new
-        rounds += 1
-        if not changed:
-            break
-    connected_components.rounds = rounds
+        changed.copy_(torch.any(new != labels))
+        labels.copy_(new)
+        rounds.add_(1)
+        stop.copy_(torch.where(changed & (rounds < max_rounds), -1, 0))
+
+    loop = grow_loop.loop_for(device)
+    with loop.stream():
+        if max_rounds > 0:
+            loop.run("round", step)
+            while loop.read(stop) < 0:
+                loop.run("round", step)
+    _count(loop)
     return torch.where(fg, labels + 1, 0).to(torch.int32)
 
 
-connected_components.rounds = 0
+def _count(loop):
+    """``connected_components``'s counts from the loop its rounds ran
+    in."""
+    connected_components.rounds = loop.runs.get("round", 0)
+    connected_components.reads = loop.reads
+    connected_components.captures = loop.captures
+    connected_components.replays = loop.replays
+    connected_components.capture_s = loop.capture_s
+
+
+_count(grow_loop.HostLoop())
 
 
 def compact_labels(labels):

@@ -1,8 +1,10 @@
 """The port's device loops: the counterpart of the JAX package's
 ``lax.while_loop`` and ``lax.scan``, for the region growers
 (arterynetwork_tpu/ops/region_grow.py:250, region_grow_fused.py:297,
-region_grow_frontier.py:564) and the flow solver
-(arterynetwork_tpu/flow/solvers.py:258,273,314,358 and CG's loop).
+region_grow_frontier.py:564), the flow solver
+(arterynetwork_tpu/flow/solvers.py:258,273,314,358 and CG's loop), the
+device thinning (arterynetwork_tpu/ops/thinning.py:173,187) and the
+connected components (arterynetwork_tpu/ops/cc.py:80).
 
 A loop's body is written once, as step functions that read their state
 from tensors made before the loop and write the new state back into them
@@ -28,9 +30,11 @@ So a grow reads ``stop`` (iterations run + 1) times, the JAX loop's
 passes one by one.
 
 The flow solver drives its own loops (a Newton loop, CG blocks within a
-Newton step, a fixed number of refinement steps) through an object that
-``loop_for`` gives: ``run(key, step)`` runs one step and ``read(stop)``
-reads a ``stop`` on the host, inside ``with loop.stream():``.
+Newton step, a fixed number of refinement steps), and the thinning and
+the components theirs (a wave pass, a final pass; a round), through an
+object that ``loop_for`` gives: ``run(key, step)`` runs one step and
+``read(stop)`` reads a ``stop`` on the host, inside ``with
+loop.stream():``.
 
 * ``HostLoop`` (CPU tensors): ``run`` calls the step; ``read`` is
   ``int(stop)``;

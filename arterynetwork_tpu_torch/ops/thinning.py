@@ -26,16 +26,21 @@ The simple-point test has two routes with the same answers:
 The volume is cropped to the mask's bounding box with a margin of one
 voxel first; everything outside is background for both, so the result
 is unchanged.
+
+The two loops (distance waves, then cleanup passes) are the JAX
+package's two ``lax.while_loop``s (arterynetwork_tpu/ops/thinning.py:173,
+187): each pass updates state made before the loop in place and runs
+through ``ops/grow_loop``, replayed from a captured CUDA graph on a card
+with the "lut" route.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import grow_loop
 from .edt import edt_squared
 from .region_grow import _as_device, _resolve_device
 from .simple_point import (_ADJ26, _ADJ6_18, _FACE_IN_18, _N18_IDX,
@@ -114,23 +119,32 @@ def _fg_neighbor_count(mask):
                                                      dtype=torch.int8)
 
 
-def _subfield_index(shape, origin=(0, 0, 0)):
-    """Parity subfield (0-7) of each voxel; ``origin`` is the volume's
-    offset in the frame whose parities count."""
-    z = (np.arange(shape[0]) + origin[0]) % 2
-    y = (np.arange(shape[1]) + origin[1]) % 2
-    x = (np.arange(shape[2]) + origin[2]) % 2
-    return (z[:, None, None] * 4 + y[None, :, None] * 2
-            + x[None, None, :]).astype(np.int8)
+def _subfield_index(shape, origin=(0, 0, 0), device="cpu"):
+    """Parity subfield (0-7) of each voxel, int8, made on ``device``;
+    ``origin`` is the volume's offset in the frame whose parities
+    count."""
+    z, y, x = ((torch.arange(n, device=device) + o).remainder_(2).to(
+        torch.int8) for n, o in zip(shape, origin))
+    return z[:, None, None] * 4 + y[None, :, None] * 2 + x[None, None, :]
 
 
-@functools.lru_cache(maxsize=None)
+_LUTS = {}          # device -> the unpacked table on it
+
+
 def _device_lut(device):
     """The 2^26 simple-point table unpacked to one bool per code (64 MiB),
-    kept on ``device``."""
-    bits = np.unpackbits(build_simple_point_lut(device=device),
-                         bitorder="little")
-    return torch.from_numpy(bits).to(device).to(torch.bool)
+    kept on ``device`` in ``_LUTS`` (``_device_lut.cache_clear()``
+    empties it)."""
+    lut = _LUTS.get(device)
+    if lut is None:
+        bits = np.unpackbits(build_simple_point_lut(device=device),
+                             bitorder="little")
+        lut = _LUTS[device] = torch.from_numpy(bits).to(device).to(
+            torch.bool)
+    return lut
+
+
+_device_lut.cache_clear = _LUTS.clear
 
 
 def _crop_box(fg):
@@ -166,6 +180,13 @@ def _subfield_deletions(fg, code, eligible, preserve_endpoints, lut):
     return cand.reshape(fg.shape)
 
 
+def _level2(level):
+    """The wave's distance bound, f32(level)^2 + 0.5 in f32, from an int32
+    ``level`` on the device."""
+    lf = level.to(torch.float32)
+    return lf * lf + 0.5
+
+
 def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
                 device=None, predicate: str = "auto"):
     """Thin a binary volume to its curve skeleton, on ``device`` (by
@@ -175,7 +196,21 @@ def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
     is preserved; curve endpoints are kept so terminal branches survive.
     ``predicate`` picks the simple-point route: "lut", "labels" or
     "auto" (the table on a CUDA device, label propagation elsewhere).
-    The host reads one pair (any deletion, max foreground d2) per pass.
+
+    Each pass (8 subfields) updates the box's mask, level, stall count,
+    pass count and ``stop`` in place.  The "lut" route runs its passes
+    in ``grow_loop.loop_for(device)``: on a CUDA device a ``GraphLoop``
+    whose two keys, "wave" and "final", each run eagerly once, are
+    captured as a CUDA graph on their second pass and replayed after
+    (a capture that fails raises).  The "labels" route finds its
+    candidates with ``torch.nonzero``, a host sync that capture refuses,
+    so it runs in a ``HostLoop`` on any device.  The host reads ``stop``
+    once before the wave loop and once after each pass of either loop
+    (the final loop's first condition is known on the host): 1 + wave
+    passes + final passes reads, besides the crop box's one read before
+    the loops.  The last call's counts are ``skeletonize.wave_passes``,
+    ``.final_passes``, ``.reads``, ``.captures``, ``.replays`` and
+    ``.capture_s``.
     """
     device = _resolve_device(mask, device)
     full = _as_device(mask, device) != 0
@@ -183,51 +218,78 @@ def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
         predicate = "lut" if device.type == "cuda" else "labels"
     if predicate not in ("lut", "labels"):
         raise ValueError(f"unknown predicate {predicate!r}")
+    _count(grow_loop.HostLoop())
     box = _crop_box(full)
     if box is None:
         return full
     fg = full[box].contiguous()
     origin = tuple(s.start for s in box)
     d2 = edt_squared(fg, band=32)
-    subfield = torch.from_numpy(_subfield_index(fg.shape, origin)).to(device)
+    subfield = _subfield_index(fg.shape, origin, device)
     sub_masks = [subfield == sf for sf in range(8)]
     lut = _device_lut(device) if predicate == "lut" else None
+    level = torch.ones((), dtype=torch.int32, device=device)
+    stalled, it, stop = (torch.zeros_like(level) for _ in range(3))
+    deleted = torch.zeros((), dtype=torch.bool, device=device)
+    max_d2 = torch.zeros((), dtype=torch.float32, device=device)
+    far = torch.full((), 1e12, dtype=torch.float32, device=device)
 
-    def delete_pass(fg, level2):
-        """One peel attempt at the current distance level; 8 subfields.
-        Returns the new fg and a device flag: anything deleted."""
+    def delete_pass(level2):
+        """One peel attempt at the distance bound ``level2``; 8
+        subfields.  Sets ``deleted``: anything deleted."""
         at_level = d2 <= level2
-        deleted = torch.zeros((), dtype=torch.bool, device=device)
+        deleted.zero_()
         for sf in range(8):
             cand = _subfield_deletions(fg, neighborhood_codes(fg),
                                        at_level & sub_masks[sf],
                                        preserve_endpoints, lut)
-            fg = fg & ~cand
-            deleted |= cand.any()
-        return fg, deleted
+            fg.logical_and_(~cand)
+            deleted.logical_or_(cand.any())
 
-    def read(deleted, fg):
-        """(deleted, max d2 over fg) in one host read."""
-        max_d2 = torch.where(fg, d2, 0.0).max()
-        pair = torch.stack([deleted.to(torch.float32), max_d2]).cpu()
-        return bool(pair[0]), np.float32(pair[1])
+    def wave_stop():
+        """Go on while f32(level)^2 <= max fg d2 + 2 and stalled < max."""
+        max_d2.copy_(torch.where(fg, d2, 0.0).max())
+        lf = level.to(torch.float32)
+        stop.copy_(torch.where((lf * lf <= max_d2 + 2.0)
+                               & (stalled < max_waves), -1, 0))
 
-    _, max_d2 = read(torch.zeros((), dtype=torch.bool, device=device), fg)
-    level, stalled = 1, 0
-    while (np.float32(level) ** 2 <= max_d2 + np.float32(2.0)
-           and stalled < max_waves):
-        level2 = float(np.float32(level) ** 2 + np.float32(0.5))
-        fg, deleted = delete_pass(fg, level2)
-        deleted, max_d2 = read(deleted, fg)
+    def wave_step():
+        delete_pass(_level2(level))
         # stay at this level until stable, then move outward
-        level, stalled = (level, 0) if deleted else (level + 1, stalled + 1)
+        torch.where(deleted, level, level + 1, out=level)
+        stalled.copy_(torch.where(deleted, 0, stalled + 1))
+        wave_stop()
 
-    # final cleanup passes at unlimited level until fixed point
-    deleted, it = True, 0
-    while deleted and it < max_waves:
-        fg, deleted = delete_pass(fg, 1e12)
-        deleted, _ = read(deleted, fg)
-        it += 1
+    def final_step():
+        """A cleanup pass at unlimited level; go on while it deleted."""
+        delete_pass(far)
+        it.add_(1)
+        stop.copy_(torch.where(deleted & (it < max_waves), -1, 0))
+
+    loop = (grow_loop.loop_for(device, watch=lambda: list(_LUTS.values()))
+            if lut is not None else grow_loop.HostLoop())
+    with loop.stream():
+        wave_stop()
+        while loop.read(stop) < 0:
+            loop.run("wave", wave_step)
+        if max_waves > 0:
+            loop.run("final", final_step)
+            while loop.read(stop) < 0:
+                loop.run("final", final_step)
+    _count(loop)
     out = torch.zeros_like(full)
     out[box] = fg
     return out
+
+
+def _count(loop):
+    """``skeletonize``'s counts from the loop its passes ran in."""
+    skeletonize.wave_passes = loop.runs.get("wave", 0)
+    skeletonize.final_passes = loop.runs.get("final", 0)
+    skeletonize.reads = loop.reads
+    skeletonize.captures = loop.captures
+    skeletonize.replays = loop.replays
+    skeletonize.capture_s = loop.capture_s
+
+
+_count(grow_loop.HostLoop())

@@ -230,8 +230,7 @@ def skeletonize(mask: ShardedVolume, max_waves: int = 64):
     sub_masks, luts = {}, {}
     for i in idxs:
         dev = fg.blocks[i].device
-        sub = torch.from_numpy(_subfield_index(
-            fg.blocks[i].shape, fg.offset(i))).to(dev)
+        sub = _subfield_index(fg.blocks[i].shape, fg.offset(i), dev)
         sub_masks[i] = [sub == sf for sf in range(8)]
         luts[i] = _device_lut(dev) if dev.type == "cuda" else None
 

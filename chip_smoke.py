@@ -87,11 +87,19 @@ Phases, each printing its own lines:
                exact EDT within its band and is clamped beyond, the exact
                EDT equals it on a 128x128x170 crop, (c) the LUT thinning
                equals the label-propagation thinning on the card (a ~2M
-               voxel crop), (d) the full-size skeleton lies in the mask,
+               voxel crop), and the full-size LUT thinning, driven by
+               captured graphs (a wave and a final pass), equals the eager
+               loop and the pipeline's skeleton bit for bit, with the same
+               passes, 1 + passes host reads, one graph per loop that ran
+               twice and a replay per later pass (wall, busy, idle traced
+               and untraced), (d) the full-size skeleton lies in the mask,
                has no deletable voxel left and as many 26-components, (e)
                the simple-point table built on the card equals the native
                predicate (2^20 sampled codes, and the native table on all
-               2^26), (f) connected_components gives the native partition,
+               2^26), (f) connected_components at 64 rounds and to
+               convergence, each graph-driven and equal to the eager loop
+               (one host read per round, one graph, rounds - 1 replays),
+               gives the native partition,
                (g) frangi_vesselness_chunked launches K1 once per slab and
                scale, within K1's bound of its twin and, on interior rows,
                of frangi_vesselness.
@@ -115,8 +123,10 @@ Phases, each printing its own lines:
                16 waves; T = 8): one warm-up and three timed runs with
                per-stage times; gates (a) the vesselness bit-equal to
                frangi_vesselness of the whole volume, (b) mask and
-               skeleton equal to the single-device composition, (c) a
-               segment, (d) the dp pressure rows equal to the
+               skeleton equal to the single-device composition (its
+               thinning driven by graphs, equal to its eager loop with
+               the counts of voxel_options_512's (c)), (c) a segment,
+               (d) the dp pressure rows equal to the
                unsharded batch's and two unsharded runs bit-equal (no
                global switch), (e) K2 4 times per sweep (its interior
                window) and K6b 8 times, (f) K6b on each padded block
@@ -750,9 +760,10 @@ def loop_counts():
 
 @contextlib.contextmanager
 def eager_loop():
-    """Run the growers' steps and the flow solver's in the eager host
-    loop on the card too (their loops, ``grow_loop.drive`` and
-    ``grow_loop.loop_for``, replay captured graphs for CUDA tensors)."""
+    """Run the growers' steps, the flow solver's, the device thinning's
+    and the components' in the eager host loop on the card too (their
+    loops, ``grow_loop.drive`` and ``grow_loop.loop_for``, replay
+    captured graphs for CUDA tensors)."""
     loop = _ops("grow_loop")
     drive, loop_for = loop.drive, loop.loop_for
     loop.drive = loop.host_loop
@@ -761,6 +772,80 @@ def eager_loop():
         yield
     finally:
         loop.drive, loop.loop_for = drive, loop_for
+
+
+def _graph_loop_counts(*passes):
+    """(captures, replays) of a GraphLoop whose keys ran ``passes``
+    times each: a key's first run eager, its second captured (and
+    replayed), every later one replayed."""
+    return (sum(n >= 2 for n in passes),
+            sum(max(n - 1, 0) for n in passes))
+
+
+def _loop_fn_counts(fn, keys):
+    """The counts a loop function (skeletonize, connected_components)
+    keeps of its last call: ``keys`` (passes) and the loop's own."""
+    return {**{k: getattr(fn, k) for k in keys},
+            **{k: getattr(fn, k) for k in ("reads", "captures", "replays",
+                                           "capture_s")}}
+
+
+def _graph_vs_eager(phase, label, fn, counts_of, passes_of, reads_of):
+    """``fn()`` on the card driven by captured graphs and in the eager
+    loop (``eager_loop()``): the same bits (a tensor), the same passes
+    and host reads (``reads_of(counts)``), and the captures and replays
+    GraphLoop makes of those passes (``passes_of(counts)``, by key).
+    -> (result, counts, graph s, eager s)."""
+    import torch
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts_of(), time.perf_counter() - t0
+
+    out, c, secs = run()
+    with eager_loop():
+        e_out, ec, e_secs = run()
+    passes = passes_of(c)
+    captures, replays = _graph_loop_counts(*passes)
+    same = torch.equal(out, e_out)
+    ok = (same and passes == passes_of(ec) and c["reads"] == ec["reads"]
+          == reads_of(c) and (c["captures"], c["replays"])
+          == (captures, replays) and ec["captures"] == ec["replays"] == 0
+          and (max(passes) < 2 or c["replays"] > 0))
+    log(phase, f"{label}: graph-driven {secs:.4f} s, eager loop "
+        f"{e_secs:.4f} s; passes {passes} (eager {passes_of(ec)}), host "
+        f"reads {c['reads']} (eager {ec['reads']}, expected "
+        f"{reads_of(c)}), graphs captured {c['captures']} in "
+        f"{c['capture_s']:.4f} s (expected {captures}), replays "
+        f"{c['replays']} (expected {replays}); bit-equal {same}")
+    if not ok:
+        raise SystemExit(f"{phase} {label}: the graph-driven run {c} "
+                         f"against the eager loop {ec}, equal {same}")
+    return out, c, secs, e_secs
+
+
+def thin_graph_vs_eager(phase, label, mask, **kw):
+    """``skeletonize(mask, **kw)`` (the lut route) through
+    ``_graph_vs_eager``: reads = 1 + wave passes + final passes."""
+    fn = _ops("thinning").skeletonize
+    return _graph_vs_eager(
+        phase, label, lambda: fn(mask, **kw),
+        lambda: _loop_fn_counts(fn, ("wave_passes", "final_passes")),
+        lambda c: (c["wave_passes"], c["final_passes"]),
+        lambda c: 1 + c["wave_passes"] + c["final_passes"])
+
+
+def cc_graph_vs_eager(phase, label, mask, **kw):
+    """``connected_components(mask, **kw)`` through ``_graph_vs_eager``:
+    one host read per round."""
+    fn = _ops("cc").connected_components
+    return _graph_vs_eager(
+        phase, label, lambda: fn(mask, **kw),
+        lambda: _loop_fn_counts(fn, ("rounds",)),
+        lambda c: (c["rounds"],), lambda c: c["rounds"])
 
 
 @contextlib.contextmanager
@@ -1861,15 +1946,25 @@ def phase_voxel_options(phantom, raw):
         outs[pred] = thinning.skeletonize(sub, predicate=pred)
         torch.cuda.synchronize()
         times[pred] = time.perf_counter() - t0
-    wall, busy, idle = device_idle(lambda: thinning.skeletonize(
-        torch.from_numpy(mask).cuda()))
-    log(P, f"full-size device thinning traced: {wall:.3f} s wall, "
-        f"{busy:.3f} s device busy, idle share {idle:.1%}")
     _check(torch.equal(outs["lut"], outs["labels"]), P,
            f"(c) LUT thinning equals label-propagation thinning on a "
            f"{tuple(sub.shape)} crop ({int(sub.sum())} mask, "
            f"{int(outs['lut'].sum())} skeleton voxels): {times['lut']:.3f} "
            f"s against {times['labels']:.3f} s")
+    # the full-size LUT thinning driven by graphs equals the eager loop
+    full_mask = torch.from_numpy(mask).cuda()
+    skel_g, tc, t_graph, t_eager = thin_graph_vs_eager(
+        P, "(c) full-size LUT thinning", full_mask)
+    _check(np.array_equal(skel_g.cpu().numpy(), skel), P,
+           "(c) the full-size graph-driven skeleton equals the pipeline's")
+    wall, busy, idle = device_idle(lambda: thinning.skeletonize(full_mask))
+    log(P, f"full-size device thinning: {tc['wave_passes']} wave + "
+        f"{tc['final_passes']} final passes, {tc['reads']} host reads, "
+        f"{tc['captures']} graphs captured in {tc['capture_s']:.4f} s, "
+        f"{tc['replays']} replays; graph-driven {t_graph:.4f} s, eager "
+        f"loop {t_eager:.4f} s; traced {wall:.3f} s wall, {busy:.3f} s "
+        f"device busy, idle share {idle:.1%} (against the untraced "
+        f"graph-driven wall {1 - busy / t_graph:.1%})")
 
     # (d) the full-size skeleton: inside the mask, thin, as many
     # 26-components as the mask
@@ -1906,23 +2001,27 @@ def phase_voxel_options(phantom, raw):
            f"simple_point_native on 2^20 sampled codes {same_sampled}, "
            f"to the native table on all 2^26 codes {same_all}")
 
-    # (f) components on the card against the native flood fill
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lab64 = cc.connected_components(torch.from_numpy(mask).cuda())
-    r64 = cc.connected_components.rounds
-    lab = cc.connected_components(torch.from_numpy(mask).cuda(),
-                                  max_rounds=1 << 12)
-    torch.cuda.synchronize()
-    t_cc = time.perf_counter() - t0
-    rounds = cc.connected_components.rounds
+    # (f) components on the card against the native flood fill, each
+    # call driven by graphs and equal to the eager loop
+    lab64, c64, t64, _ = cc_graph_vs_eager(P, "(f) components, 64 rounds",
+                                           full_mask)
+    lab, cfull, t_cc, _ = cc_graph_vs_eager(
+        P, "(f) components to convergence", full_mask, max_rounds=1 << 12)
+    rounds, r64 = cfull["rounds"], c64["rounds"]
+    wall, busy, idle = device_idle(lambda: cc.connected_components(
+        full_mask, max_rounds=1 << 12))
+    log(P, f"components to convergence: {rounds} rounds, {cfull['reads']} "
+        f"host reads, {cfull['captures']} graph captured in "
+        f"{cfull['capture_s']:.4f} s, {cfull['replays']} replays; "
+        f"graph-driven {t_cc:.4f} s; traced {wall:.3f} s wall, {busy:.3f} s "
+        f"device busy, idle share {idle:.1%} (against the untraced "
+        f"graph-driven wall {1 - busy / t_cc:.1%})")
     ref, k = native.label_components_native(mask)
     n64 = len(np.unique(lab64.cpu().numpy())) - 1
     _check(_same_partition(lab.cpu().numpy(), ref), P,
            f"(f) connected_components run to convergence ({rounds} rounds; "
-           f"both calls {t_cc:.2f} s) gives the native partition ({k} "
-           f"components); at the default 64 rounds ({r64} run) "
-           f"{n64} labels")
+           f"{t_cc:.2f} s) gives the native partition ({k} components); at "
+           f"the default 64 rounds ({r64} run, {t64:.2f} s) {n64} labels")
 
     # (g) the chunked vesselness driver: K1 per slab and scale
     sig = tuple(cfg.vesselness.sigmas)
@@ -2293,7 +2392,6 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     from arterynetwork_tpu_torch.flow.solvers import \
         solve_pressure_newton_batch
     from arterynetwork_tpu_torch.ops.region_grow import region_grow
-    from arterynetwork_tpu_torch.ops.thinning import skeletonize
     from arterynetwork_tpu_torch.ops.vesselness import frangi_vesselness
     from arterynetwork_tpu_torch.parallel import sharded
     from arterynetwork_tpu_torch.parallel.halo import (make_volume_mesh,
@@ -2350,10 +2448,8 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
                          iter_max=SHARDED_ITERS)
     single["region_grow"] = time.perf_counter() - t0
     mask1 = grown1.segmented_map
-    t0 = time.perf_counter()
-    skel1 = skeletonize(mask1, max_waves=SHARDED_WAVES)
-    torch.cuda.synchronize()
-    single["thinning"] = time.perf_counter() - t0
+    skel1, _, single["thinning"], _ = thin_graph_vs_eager(
+        phase, "single-device thinning", mask1, max_waves=SHARDED_WAVES)
     v1_host = v1.cpu().numpy()
     if one is not None:
         peaks_v["one_slab_bit_equal"] = bool(np.array_equal(one, v1_host))

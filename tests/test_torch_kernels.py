@@ -14,8 +14,10 @@ last ones hold the growers' graph-driven loop on the card (each
 iteration a captured CUDA graph, replayed) to the eager loop, bit for
 bit, with the launches and stop reads one pass each makes, and the
 flow solver's graph-driven loops (each Newton step, CG block and
-refinement step a captured graph) likewise, with its host reads.
-This file
+refinement step a captured graph) likewise, with its host reads, and
+the device thinning's (a wave and a final pass) and the components'
+(a labelling round) likewise, with their passes and host reads.  This
+file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch:
 
@@ -824,3 +826,130 @@ def test_graph_driven_batch_with_a_large_lu(cuda, monkeypatch):
     assert graph == eager
     assert sg.host_reads == se.host_reads
     assert sg.captures == 2 and sg.replays % 2 == 0 and sg.replays > 0
+
+
+# ----------------------------------------------------------------------
+# the device thinning's and the components' loops on the card
+# ----------------------------------------------------------------------
+def _loop_counts_of(fn, keys):
+    return {k: getattr(fn, k) for k in keys + ("reads", "captures",
+                                               "replays")}
+
+
+def _graph_vs_eager(fn, counts, monkeypatch):
+    """``fn()`` twice driven by graphs and once in the eager loop ->
+    (graph result, eager result, counts of each run)."""
+    runs = []
+    for _ in range(2):
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append((out.cpu(), counts()))
+    with monkeypatch.context() as m:
+        m.setattr(grow_loop, "loop_for",
+                  lambda *args, **kw: grow_loop.HostLoop())
+        eager = fn().cpu()
+        ec = counts()
+    (a, ca), (b, cb) = runs
+    assert torch.equal(b, a) and ca == cb      # captured again, same work
+    assert ec["captures"] == ec["replays"] == 0
+    return a, eager, ca, ec
+
+
+def _thin_volume(name):
+    from arterynetwork_tpu_torch.utils.phantoms import vascular_tree_phantom
+
+    if name == "blob":
+        return np.random.default_rng(0).random((12, 14, 16)) < 0.6
+    return vascular_tree_phantom((40, 64, 96), n_branches=12,
+                                 root_radius=3.0, branch_length=(12, 25),
+                                 seed=1)["mask"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_waves", [1, 64])
+@pytest.mark.parametrize("pe", [True, False], ids=["endpoints", "none"])
+@pytest.mark.parametrize("vol", ["phantom", "blob"])
+def test_graph_driven_thinning_matches_eager_loop(cuda, vol, pe, max_waves,
+                                                  monkeypatch):
+    """The LUT thinning, each wave and final pass replayed from a
+    captured graph, equals the eager loop bit for bit with the same
+    passes and 1 + passes host reads; one graph per loop that ran twice,
+    a replay per later pass; the mask is left as it was."""
+    from arterynetwork_tpu_torch.ops import thinning as tt
+
+    mask = torch.from_numpy(np.asarray(_thin_volume(vol))).to(cuda)
+    keep = mask.clone()
+    graph, eager, c, ec = _graph_vs_eager(
+        lambda: tt.skeletonize(mask, max_waves, pe),
+        lambda: _loop_counts_of(tt.skeletonize,
+                                ("wave_passes", "final_passes")),
+        monkeypatch)
+    assert torch.equal(graph, eager) and torch.equal(mask, keep)
+    w, f = c["wave_passes"], c["final_passes"]
+    assert (w, f, c["reads"]) == (ec["wave_passes"], ec["final_passes"],
+                                  ec["reads"])
+    assert c["reads"] == 1 + w + f and w > 1
+    assert (c["captures"], c["replays"]) == (
+        (w >= 2) + (f >= 2), max(w - 1, 0) + max(f - 1, 0))
+
+
+def _serpentine():
+    """One path of ~2,000 voxels winding through (3, 45, 90): 92 rounds
+    with connectivity 1, 91 with 3."""
+    vol = np.zeros((3, 45, 90), np.uint8)
+    vol[1, ::2, :] = 1
+    for k, y in enumerate(range(1, 45, 2)):
+        vol[1, y, 89 if k % 2 == 0 else 0] = 1
+    return vol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_rounds", [1, 2, 64, 4096])
+@pytest.mark.parametrize("connectivity", [1, 3])
+@pytest.mark.parametrize("vol", ["serpentine", "random"])
+def test_graph_driven_components_match_eager_loop(cuda, vol, connectivity,
+                                                  max_rounds, monkeypatch):
+    """Each labelling round replayed from one captured graph: the eager
+    loop's labels and rounds, one host read per round; the input is left
+    as it was."""
+    from arterynetwork_tpu_torch.ops import cc
+
+    arr = (_serpentine() if vol == "serpentine" else
+           np.random.default_rng(1).random((20, 24, 28)) < 0.5)
+    mask = torch.from_numpy(arr).to(cuda)
+    keep = mask.clone()
+    graph, eager, c, ec = _graph_vs_eager(
+        lambda: cc.connected_components(mask, connectivity, max_rounds),
+        lambda: _loop_counts_of(cc.connected_components, ("rounds",)),
+        monkeypatch)
+    assert torch.equal(graph, eager) and torch.equal(mask, keep)
+    r = c["rounds"]
+    assert (r, c["reads"]) == (ec["rounds"], ec["reads"])
+    assert c["reads"] == r
+    if vol == "serpentine":
+        assert r == min(max_rounds, 92 if connectivity == 1 else 91)
+    assert (c["captures"], c["replays"]) == (int(r >= 2), max(r - 1, 0))
+
+
+@pytest.mark.gpu
+def test_level2_on_card_matches_host_value(cuda):
+    """The wave bound f32(level)^2 + 0.5 computed on the card equals the
+    host value the loop used before, at every level up to 2^12."""
+    from arterynetwork_tpu_torch.ops import thinning as tt
+
+    levels = np.arange(0, (1 << 12) + 1)
+    dev = tt._level2(torch.from_numpy(levels.astype(np.int32)).to(cuda))
+    host = np.array([np.float32(lv) ** 2 + np.float32(0.5)
+                     for lv in levels], np.float32)
+    np.testing.assert_array_equal(dev.cpu().numpy(), host)
+
+
+@pytest.mark.gpu
+def test_subfield_index_on_card_matches_cpu(cuda):
+    """The thinning's parity subfields made on the card equal the CPU's,
+    at odd shapes and offsets."""
+    from arterynetwork_tpu_torch.ops.thinning import _subfield_index
+
+    for shape, origin in (((7, 2, 9), (0, 0, 0)), ((5, 6, 3), (3, 258, 7))):
+        assert torch.equal(_subfield_index(shape, origin, cuda).cpu(),
+                           _subfield_index(shape, origin))
