@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/flow/distribute.py in torch: the level and Gauss-Newton scans are loops, the Jacobian torch.func.jacfwd.
+# Copy of arterynetwork_tpu/flow/distribute.py in torch: the level scan is a loop, the Gauss-Newton scan steps run in ops/grow_loop, the Jacobian torch.func.jacfwd.
 """Flow-distribution optimizer — the reference's unfinished distributeFlow slot.
 
 Reference: ``fluidSimulation.py:1053`` (``setupEquationsForDistributeFlow``),
@@ -46,6 +46,7 @@ from torch.func import jacfwd
 from ..constants import (HW_COEFF, HW_DIAMETER_EXPONENT, INLET_PRESSURE,
                          PASCAL_PER_MMHG)
 from ..graphs.network import FlowNetwork
+from ..ops import grow_loop
 
 # the reference's desired terminating pressure (fluidSimulation.py:1100)
 # — the same 13560*9.8*0.12 Pa as the inlet constant
@@ -273,12 +274,22 @@ def distribute_flow(
     terminating pressures match the desired values".  Runs ``max_iter``
     steps on the device with no host read; ``tol_mmhg`` is accepted and
     unused, as in the JAX package.
+
+    The steps are the JAX package's ``lax.scan``
+    (arterynetwork_tpu/flow/distribute.py:310): each writes ``theta`` and
+    the damping ``lam``, buffers made before the loop, in place, and runs
+    under the key "gn" in ``ops/grow_loop.loop_for``'s loop: on a card
+    step 1 eagerly, step 2 captured as a CUDA graph (the Jacobian and
+    both damped solves in it), steps 3.. replayed; on the CPU eagerly.
+    The last call's counts are ``distribute_flow.steps``, ``.captures``,
+    ``.replays`` and ``.capture_s``.
     """
     E = system.num_edges
     dtype = system.dp_coeff.dtype
     device = system.dp_coeff.device
     theta = (torch.zeros(E, dtype=dtype, device=device) if init_theta is None
-             else torch.as_tensor(init_theta, dtype=dtype, device=device))
+             else torch.as_tensor(init_theta, dtype=dtype,
+                                  device=device).clone())
 
     def res_fn(th):
         return residuals(th, system)
@@ -286,7 +297,10 @@ def distribute_flow(
     jac_fn = jacfwd(res_fn)
     eye = torch.eye(E, dtype=dtype, device=device)
     lam = torch.tensor(1e-3, dtype=dtype, device=device)
-    for _ in range(max_iter):
+
+    def step():
+        """One damped Gauss-Newton step: two trial dampings, the better
+        kept if it lowers the cost; ``theta`` and ``lam`` updated."""
         r = res_fn(theta)
         J = jac_fn(theta)
         g = J.T @ r
@@ -304,11 +318,19 @@ def distribute_flow(
         delta = torch.where(use1, d1, d2)
         new_cost = torch.where(use1, c1, c2)
         accept = new_cost <= cost
-        theta = torch.where(accept, theta + delta, theta)
-        lam = torch.where(accept,
-                          torch.where(use1, lam * 0.3, lam * 3.0),
-                          lam * 10.0)
-        lam = torch.clamp(lam, 1e-12, 1e8)
+        theta.copy_(torch.where(accept, theta + delta, theta))
+        lam.copy_(torch.clamp(torch.where(
+            accept, torch.where(use1, lam * 0.3, lam * 3.0), lam * 10.0),
+            1e-12, 1e8))
+
+    loop = grow_loop.loop_for(torch.device(device))
+    with loop.stream():
+        for _ in range(max_iter):
+            loop.run("gn", step)
+    distribute_flow.steps = loop.runs.get("gn", 0)
+    distribute_flow.captures = loop.captures
+    distribute_flow.replays = loop.replays
+    distribute_flow.capture_s = loop.capture_s
 
     pressure, _, eflow, _ = propagate(theta, system)
     r_term = (pressure[system.terminal_nodes]
@@ -322,6 +344,11 @@ def distribute_flow(
         iterations=torch.tensor(max_iter),
         theta=theta,
     )
+
+
+distribute_flow.steps = distribute_flow.captures = 0
+distribute_flow.replays = 0
+distribute_flow.capture_s = 0.0
 
 
 def distribute_flow_study(

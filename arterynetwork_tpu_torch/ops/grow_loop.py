@@ -3,8 +3,11 @@
 (arterynetwork_tpu/ops/region_grow.py:250, region_grow_fused.py:297,
 region_grow_frontier.py:564), the flow solver
 (arterynetwork_tpu/flow/solvers.py:258,273,314,358 and CG's loop), the
-device thinning (arterynetwork_tpu/ops/thinning.py:173,187) and the
-connected components (arterynetwork_tpu/ops/cc.py:80).
+device thinning (arterynetwork_tpu/ops/thinning.py:173,187), the
+connected components (arterynetwork_tpu/ops/cc.py:80), the sharded
+grower and thinning (parallel/sharded.py, where GSPMD runs those loops
+over a mesh) and the flow distribution's Gauss-Newton scan
+(arterynetwork_tpu/flow/distribute.py:310).
 
 A loop's body is written once, as step functions that read their state
 from tensors made before the loop and write the new state back into them
@@ -58,7 +61,8 @@ while a step is captured, and so may a caller's own counters.  A capture
 takes out what it added to each counter and each replay adds it back,
 so a counter counts what ran.  ``read_stop.reads`` counts the growers'
 host reads of their ``stop``, ``graph_loop.captures`` the graphs they
-captured and ``graph_loop.replays`` their replays; a loop object counts
+captured, ``graph_loop.replays`` their replays and
+``graph_loop.capture_s`` the seconds spent capturing; a loop object counts
 its own in ``reads``, ``captures``, ``replays``, ``capture_s`` (seconds
 spent capturing) and ``runs`` (steps run, by key), which the solver
 hands to its ``SolveStats``.
@@ -289,10 +293,12 @@ def graph_loop(steps, stop):
     finally:
         graph_loop.captures += loop.captures
         graph_loop.replays += loop.replays
+        graph_loop.capture_s += loop.capture_s
 
 
 graph_loop.captures = 0
 graph_loop.replays = 0
+graph_loop.capture_s = 0.0
 
 
 def drive(steps, stop):

@@ -21,19 +21,31 @@ quantity that spans the volume reduced across blocks before it is used:
   halo-padded copies of the segmentation, made once: per iteration K2
   sweeps each block of one copy over its interior window (the halo is
   read, never flipped or counted) into the other copy, whose halo faces
-  alone are then refreshed from its neighbours (``refresh_halos``), and
-  the two swap; the blocks' +/- histograms go into one preallocated
-  buffer per device, summed on the first block's device, and the host
-  reads the stop code once.  The quantisation's min/max and the region
-  histograms (K6b per block, exact int32 counts) are taken over all
-  blocks.  Equal to the single-device grower: mask, iterations, count,
-  stop reason.
+  alone are then refreshed from its neighbours (``refresh_halos``); the
+  blocks' +/- histograms go into one preallocated buffer per device,
+  summed on the first block's device.  The quantisation's min/max and
+  the region histograms (K6b per block, exact int32 counts) are taken
+  over all blocks.  Equal to the single-device grower: mask, iterations,
+  count, stop reason.
 * ``skeletonize``: the EDT above, then per pass a halo-1 exchange of the
   foreground before each of the 8 subfields, whose parities are global
-  (``ops/thinning._subfield_index`` at the block's offset), and one host
-  read of (anything deleted, max d2) reduced over the blocks.  The
-  single-device thinning's crop to the mask's box is dropped (it changes
-  nothing but the work); the skeleton is bit-equal.
+  (``ops/thinning._subfield_index`` at the block's offset), with
+  (anything deleted, max d2) reduced over the blocks.  The single-device
+  thinning's crop to the mask's box is dropped (it changes nothing but
+  the work); the skeleton is bit-equal.
+
+The two loops are the JAX package's ``lax.while_loop``s, which GSPMD
+runs over the mesh as one program
+(arterynetwork_tpu/parallel/pipeline_sharded.py:63,67 ->
+ops/region_grow.py:250, ops/thinning.py:173,187).  Here each iteration
+(the grower's sweep: two steps, A -> B and B -> A; a thinning pass) is
+a step over state made before the loop and updated in place, run by
+``ops/grow_loop`` as on one device.  ``loop_route`` picks how: when
+every block is on one CUDA device each step is captured once as a CUDA
+graph and replayed ("graph"); on CPU blocks, and on blocks spread over
+several cards, which one graph cannot span, the steps run eagerly
+("host").  Either way the host reads ``stop`` once before the loop and
+once per iteration.
 
 The sharded pipeline (parallel/pipeline_sharded.py) calls these directly;
 the single-device functions do not dispatch here.  On a mesh whose slots
@@ -45,6 +57,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import grow_loop
 from ..ops.edt import edt_squared as _edt_squared
 from ..ops.histogram_kernels import masked_histogram1
 from ..ops.region_grow import (DEFAULT_H, DEFAULT_ITER_MAX,
@@ -54,8 +67,8 @@ from ..ops.region_grow import (DEFAULT_H, DEFAULT_ITER_MAX,
 from ..ops.region_grow_fused import (NUM_BINS, fused_sweep_counts,
                                      pack_sign_words)
 from ..ops.simple_point import neighborhood_codes
-from ..ops.thinning import (_device_lut, _subfield_deletions,
-                            _subfield_index)
+from ..ops.thinning import (_LUTS, _device_lut, _level2,
+                            _subfield_deletions, _subfield_index)
 from ..ops.vesselness import (_norm, _sorted_eigvals, _tubularity,
                               hessian_at_scale)
 from .halo import (Padded, ShardedVolume, halo_faces, pad_halos,
@@ -64,6 +77,22 @@ from .halo import (Padded, ShardedVolume, halo_faces, pad_halos,
 
 def _first(vol: ShardedVolume):
     return vol.blocks[(0,) * len(vol.grid)]
+
+
+def loop_route(devices):
+    """How a sharded stage runs its loop over blocks on ``devices``:
+    "graph" when they are all one CUDA device (every mesh whose slots
+    repeat one card), where ``ops/grow_loop`` captures each step as one
+    CUDA graph and replays it; else "host", the eager loop (CPU blocks,
+    or blocks on several cards, which one graph cannot span)."""
+    devs = list(dict.fromkeys(torch.device(d) for d in devices))
+    return "graph" if len(devs) == 1 and devs[0].type == "cuda" else "host"
+
+
+def _lut_for(device):
+    """The simple-point route of the blocks on ``device``: the table on a
+    CUDA device, label propagation (None) elsewhere."""
+    return _device_lut(device) if device.type == "cuda" else None
 
 
 def _reduce(parts, op, device):
@@ -148,7 +177,14 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
     volume.  Returns a
     ``RegionGrowResult`` whose ``segmented_map`` is a sharded bool volume
     and whose ``active_map`` is None (no voxel is excluded); the scalars
-    lie on the first block's device."""
+    lie on the first block's device.
+
+    The sweeps go to ``grow_loop.drive`` on the "graph" route
+    (``loop_route``: on a card, sweep 1 eager, then both steps captured
+    and replayed) and to ``grow_loop.host_loop`` on the "host" route;
+    ``stop`` is read once before the loop and once per sweep
+    (``grow_loop.read_stop.reads``).  The last call's route is
+    ``region_grow.route``."""
     data = data.map(lambda b: b.to(torch.float32))
     idxs = data.indices()
     dev0 = _first(data).device
@@ -185,9 +221,13 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
     windows = {i: src.window(i) for i in idxs}
     src_faces, dst_faces = halo_faces(src), halo_faces(dst)
 
+    # the loop's state, on the first block's device, written in place
     it = torch.zeros((), dtype=torch.int32, device=dev0)
     stop = torch.where(count >= max_segment_size, 1, -1).to(torch.int32)
-    while int(stop) < 0:
+
+    def step(a, b, b_faces):
+        """One sweep: K2 on every block of ``a`` into ``b``'s windows,
+        ``b``'s halo faces refreshed, the counts summed on ``dev0``."""
         inner_f = inner.to(torch.float32)
         words = pack_sign_words(_decision_table(K, inner_f,
                                                 hist_all - inner_f))
@@ -195,48 +235,82 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
         for buf in dh_buf.values():
             buf.zero_()
         for i in idxs:
-            t = src.blocks[i]
+            t = a.blocks[i]
             fused_sweep_counts(t, bins_pad.blocks[i], words_on[t.device],
-                               window=windows[i], out=dst.blocks[i],
+                               window=windows[i], out=b.blocks[i],
                                dh=dh_of[i])
-        refresh_halos(dst, dst_faces)
-        src, dst = dst, src
-        src_faces, dst_faces = dst_faces, src_faces
+        refresh_halos(b, b_faces)
         parts = [buf.sum(dim=0) for buf in dh_buf.values()]
         dh = parts[0] if len(parts) == 1 else _reduce(parts, torch.sum,
                                                       dev0)
         n_pos, n_neg = dh.sum(dim=1, dtype=torch.int32)
         converged = (n_pos + n_neg) == 0
-        inner = inner + dh[0] - dh[1]
-        count = count + n_pos - n_neg
-        it = it + (~converged).to(torch.int32)
-        stop = _stop_code(converged, count >= max_segment_size, it,
-                          iter_max)
-    return RegionGrowResult(segmented_map=src.crop().map(lambda b: b != 0),
-                            active_map=None, iterations=it,
-                            segmented_count=count, stop_reason=stop)
+        inner.add_(dh[0]).sub_(dh[1])
+        count.add_(n_pos).sub_(n_neg)
+        it.add_((~converged).to(torch.int32))
+        stop.copy_(_stop_code(converged, count >= max_segment_size, it,
+                              iter_max))
+
+    steps = [lambda: step(src, dst, dst_faces),
+             lambda: step(dst, src, src_faces)]
+    region_grow.route = loop_route(data.mesh.distinct_devices())
+    if region_grow.route == "graph":
+        n = grow_loop.drive(steps, stop)
+    else:
+        n = grow_loop.host_loop(steps, stop)
+    grown = (src, dst)[n % 2].crop().map(lambda b: b != 0)
+    return RegionGrowResult(segmented_map=grown, active_map=None,
+                            iterations=it, segmented_count=count,
+                            stop_reason=stop)
+
+
+region_grow.route = None
 
 
 def skeletonize(mask: ShardedVolume, max_waves: int = 64):
     """``ops/thinning.skeletonize`` of a sharded mask (endpoints kept), as
     a sharded bool volume, bit-equal to the whole volume's skeleton.  The
     simple-point test is the table on CUDA blocks and label propagation
-    on CPU blocks.  The host reads one pair per pass, reduced over the
-    blocks."""
+    on CPU blocks.
+
+    As on one device, each pass (8 subfields, each after a halo-1
+    exchange of the foreground) updates the blocks' masks, the level,
+    stall count, pass count, ``deleted``, the max d2 and ``stop`` in
+    place, on the first block's device, and runs in a loop of
+    ``ops/grow_loop`` under the keys "wave" and "final": on the "graph"
+    route (``loop_route``) ``grow_loop.loop_for``'s, which on a card
+    replays each key's pass from a captured CUDA graph, else a
+    ``HostLoop`` (CPU blocks, whose label propagation calls
+    ``torch.nonzero``, or blocks on several cards).  The host reads
+    ``stop`` once before the wave loop and once after each pass: 1 +
+    wave passes + final passes reads (an empty mask returns after the
+    first).  The last call's counts are ``skeletonize.route``,
+    ``.wave_passes``, ``.final_passes``, ``.reads``, ``.captures``,
+    ``.replays`` and ``.capture_s``."""
     fg = mask.map(lambda b: b != 0)
     idxs = fg.indices()
     dev0 = _first(fg).device
+    route = loop_route(mask.mesh.distinct_devices())
+    _count(grow_loop.HostLoop(), route)
     d2 = edt_squared(fg, band=32)
     sub_masks, luts = {}, {}
     for i in idxs:
         dev = fg.blocks[i].device
         sub = _subfield_index(fg.blocks[i].shape, fg.offset(i), dev)
         sub_masks[i] = [sub == sf for sf in range(8)]
-        luts[i] = _device_lut(dev) if dev.type == "cuda" else None
+        luts[i] = _lut_for(dev)
+    level = torch.ones((), dtype=torch.int32, device=dev0)
+    stalled, it, stop = (torch.zeros_like(level) for _ in range(3))
+    deleted = torch.zeros((), dtype=torch.bool, device=dev0)
+    max_d2 = torch.zeros((), dtype=torch.float32, device=dev0)
+    far = torch.full((), 1e12, dtype=torch.float32, device=dev0)
 
     def delete_pass(level2):
-        at_level = {i: d2.blocks[i] <= level2 for i in idxs}
-        deleted = []
+        """One peel attempt at the distance bound ``level2``; 8
+        subfields.  Sets ``deleted``: anything deleted."""
+        at_level = {i: d2.blocks[i] <= level2.to(d2.blocks[i].device)
+                    for i in idxs}
+        deleted.zero_()
         for sf in range(8):
             pad = pad_halos(fg, 1)
             for i in idxs:
@@ -244,30 +318,58 @@ def skeletonize(mask: ShardedVolume, max_waves: int = 64):
                 cand = _subfield_deletions(
                     own, neighborhood_codes(pad.blocks[i])[pad.box(i)],
                     at_level[i] & sub_masks[i][sf], True, luts[i])
-                fg.blocks[i] = own & ~cand
-                deleted.append(cand.any())
-        return _reduce(deleted, torch.any, dev0)
+                own.logical_and_(~cand)
+                deleted.logical_or_(cand.any().to(dev0))
 
-    def read(deleted):
-        """(deleted, max d2 over fg) in one host read."""
-        max_d2 = _reduce([torch.where(fg.blocks[i], d2.blocks[i],
-                                      0.0).max() for i in idxs],
-                         torch.max, dev0).values
-        pair = torch.stack([deleted.to(torch.float32), max_d2]).cpu()
-        return bool(pair[0]), np.float32(pair[1])
+    def wave_stop():
+        """Go on while f32(level)^2 <= max fg d2 + 2 and stalled < max."""
+        max_d2.copy_(_reduce([torch.where(fg.blocks[i], d2.blocks[i],
+                                          0.0).max() for i in idxs],
+                             torch.max, dev0).values)
+        lf = level.to(torch.float32)
+        stop.copy_(torch.where((lf * lf <= max_d2 + 2.0)
+                               & (stalled < max_waves), -1, 0))
 
-    _, max_d2 = read(torch.zeros((), dtype=torch.bool, device=dev0))
-    if max_d2 == 0:                 # no foreground voxel
-        return fg
-    level, stalled = 1, 0
-    while (np.float32(level) ** 2 <= max_d2 + np.float32(2.0)
-           and stalled < max_waves):
-        level2 = float(np.float32(level) ** 2 + np.float32(0.5))
-        deleted, max_d2 = read(delete_pass(level2))
-        level, stalled = (level, 0) if deleted else (level + 1, stalled + 1)
+    def wave_step():
+        delete_pass(_level2(level))
+        # stay at this level until stable, then move outward
+        torch.where(deleted, level, level + 1, out=level)
+        stalled.copy_(torch.where(deleted, 0, stalled + 1))
+        wave_stop()
 
-    deleted, it = True, 0
-    while deleted and it < max_waves:
-        deleted, _ = read(delete_pass(1e12))
-        it += 1
+    def final_step():
+        """A cleanup pass at unlimited level; go on while it deleted."""
+        delete_pass(far)
+        it.add_(1)
+        stop.copy_(torch.where(deleted & (it < max_waves), -1, 0))
+
+    loop = (grow_loop.loop_for(dev0, watch=lambda: list(_LUTS.values()))
+            if route == "graph" else grow_loop.HostLoop())
+    with loop.stream():
+        wave_stop()
+        stop.copy_(torch.where(max_d2 == 0, 1, stop))  # 1: no foreground
+        go = loop.read(stop)
+        if go != 1:
+            while go < 0:
+                loop.run("wave", wave_step)
+                go = loop.read(stop)
+            if max_waves > 0:
+                loop.run("final", final_step)
+                while loop.read(stop) < 0:
+                    loop.run("final", final_step)
+    _count(loop, route)
     return fg
+
+
+def _count(loop, route):
+    """``skeletonize``'s counts from the loop its passes ran in."""
+    skeletonize.route = route
+    skeletonize.wave_passes = loop.runs.get("wave", 0)
+    skeletonize.final_passes = loop.runs.get("final", 0)
+    skeletonize.reads = loop.reads
+    skeletonize.captures = loop.captures
+    skeletonize.replays = loop.replays
+    skeletonize.capture_s = loop.capture_s
+
+
+_count(grow_loop.HostLoop(), None)

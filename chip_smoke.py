@@ -134,8 +134,17 @@ Phases, each printing its own lines:
                version; halo bytes per iteration, the bytes the grower's
                halo refresh copies per sweep (and those re-padding every
                block would write), the device bytes the grower
-               allocates per sweep, a traced grow's idle share, peak
-               device memory.
+               allocates per sweep, peak device memory; then the
+               sharded grow and the sharded thinning on the "graph"
+               route (each sweep or pass a captured CUDA graph,
+               replayed), each against the eager loop (eager_loop()):
+               the grow bit-equal with the same launches, one stop read
+               per sweep plus one (host reads per iteration computed)
+               and a replay per sweep after the first; the thinning
+               bit-equal and equal to the single-device skeleton, 1 +
+               passes host reads, each key captured on its second pass;
+               captures, replays, capture seconds, and each one's busy
+               time and idle share, traced and untraced.
      dryrun_multichip — flagship.dryrun_multichip(4) and (8) on the card.
      Speck scale, 880x880x640 (BASELINE.md config 5), each phase's data
      made on the host from seeds and timed apart, each phase's tensors
@@ -168,7 +177,9 @@ Phases, each printing its own lines:
                each against its plain version, exact but K1, with ms,
                bounds and library-call ms;
      speck_sharded — sharded_512's phase on the Speck raw volume, one
-               warm-up and one timed run, gates (a)-(e), the whole-volume
+               warm-up and one timed run, gates (a)-(e), the sharded
+               grow's and thinning's graph-driven runs against their
+               eager loops as there, the whole-volume
                vesselness's peak memory with its per-voxel passes in one
                slab and in slabs (bit-equal), whether the ground truth is
                feasible.
@@ -202,7 +213,9 @@ Phases, each printing its own lines:
                the Darcy-Weisbach network): seconds per driver, the
                graphs its solves captured and replayed, finite outputs,
                the solver drivers equal to the port on the CPU within
-               1e-9, pickles written and read back.
+               1e-9, pickles written and read back; distribute's
+               Gauss-Newton fit graph-driven (40 steps: 1 capture, 39
+               replays) and within 1e-9 of its eager loop on the card.
  14. figures — the CLI's study gbm5 and gbm5b (depth 10, T = 4) and
                morpho with its 13 figures on graph_path_512's bundle, on
                the card: seconds and figure files with their sizes (each
@@ -748,14 +761,17 @@ def reset_loop_counts():
     loop = _ops("grow_loop")
     loop.read_stop.reads = 0
     loop.graph_loop.captures = loop.graph_loop.replays = 0
+    loop.graph_loop.capture_s = 0.0
 
 
 def loop_counts():
-    """The growers' host reads of ``stop``, graphs captured, replays."""
+    """The growers' host reads of ``stop``, graphs captured, replays,
+    seconds spent capturing."""
     loop = _ops("grow_loop")
     return {"reads": loop.read_stop.reads,
             "captures": loop.graph_loop.captures,
-            "replays": loop.graph_loop.replays}
+            "replays": loop.graph_loop.replays,
+            "capture_s": loop.graph_loop.capture_s}
 
 
 @contextlib.contextmanager
@@ -2356,6 +2372,89 @@ def _rel_diff(a, b):
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
 
 
+def _sharded_grow_vs_eager(phase, v_sh, seeds_sh):
+    """The sharded grow of ``phase`` (60 iterations, 10^7 voxels) driven
+    by captured graphs and in the eager loop (``eager_loop()``): the same
+    mask, iterations, count, stop reason and launches, on the "graph"
+    route, one ``stop`` read per sweep plus one and a replay per sweep
+    after the first (``_graph_driven``); then one traced run: busy, idle
+    share traced and against the untraced wall -> a record."""
+    import torch
+
+    from arterynetwork_tpu_torch.parallel import sharded
+
+    def grow():
+        return sharded.region_grow(v_sh, seeds_sh, max_segment_size=10 ** 7,
+                                   iter_max=SHARDED_ITERS)
+
+    res, secs, counts, loops = _grow_run(grow)
+    route = sharded.region_grow.route
+    with eager_loop():
+        eager, e_secs, e_counts, e_loops = _grow_run(grow)
+    same = (torch.equal(res.segmented_map.gather(),
+                        eager.segmented_map.gather())
+            and [int(res.iterations), int(res.segmented_count),
+                 int(res.stop_reason)]
+            == [int(eager.iterations), int(eager.segmented_count),
+                int(eager.stop_reason)])
+    sweeps = int(res.iterations) + (int(res.stop_reason) == 0)
+    wall, busy, idle = device_idle(grow)
+    rec = {"route": route, "graph_s": secs, "eager_loop_s": e_secs,
+           "sweeps": sweeps, "launches": counts, **loops,
+           "eager_reads": e_loops["reads"],
+           "host_reads_per_iteration": (loops["reads"] - 1) / max(sweeps, 1),
+           "traced_s": wall, "busy_s": busy, "idle": idle,
+           "idle_untraced": 1 - busy / secs}
+    log(phase, f"sharded grow: graph-driven {secs:.4f} s (route {route}), "
+        f"eager loop {e_secs:.4f} s; {sweeps} sweeps, host reads "
+        f"{loops['reads']} (eager {e_loops['reads']}), graphs captured "
+        f"{loops['captures']} in {loops['capture_s']:.4f} s, replays "
+        f"{loops['replays']}; launches {counts} (eager {e_counts}); "
+        f"bit-equal {same}; traced {wall:.4f} s, device busy {busy:.4f} s"
+        f", idle {idle:.1%} traced, {rec['idle_untraced']:.1%} untraced")
+    if not (same and route == "graph" and counts == e_counts
+            and loops["reads"] == e_loops["reads"]
+            and e_loops["captures"] == e_loops["replays"] == 0):
+        raise SystemExit(f"{phase} sharded grow: the graph-driven run "
+                         f"{counts}, {loops} against the eager loop "
+                         f"{e_counts}, {e_loops}, equal {same}, route "
+                         f"{route}")
+    _graph_driven(f"{phase} sharded grow", res, loops)
+    return rec
+
+
+def _sharded_thin_vs_eager(phase, mask_sh, skel1):
+    """The sharded thinning of ``phase`` (16 waves) through
+    ``_graph_vs_eager`` (reads = 1 + wave passes + final passes), on the
+    "graph" route, equal to the single-device skeleton ``skel1``; then
+    one traced run: busy, idle share traced and against the untraced
+    wall -> a record."""
+    import torch
+
+    fn = importlib.import_module(
+        "arterynetwork_tpu_torch.parallel.sharded").skeletonize
+    out, c, secs, e_secs = _graph_vs_eager(
+        phase, "sharded thinning",
+        lambda: fn(mask_sh, max_waves=SHARDED_WAVES).gather(),
+        lambda: _loop_fn_counts(fn, ("wave_passes", "final_passes")),
+        lambda c: (c["wave_passes"], c["final_passes"]),
+        lambda c: 1 + c["wave_passes"] + c["final_passes"])
+    same = torch.equal(out, skel1)
+    wall, busy, idle = device_idle(lambda: fn(mask_sh,
+                                              max_waves=SHARDED_WAVES))
+    rec = {"route": fn.route, "graph_s": secs, "eager_loop_s": e_secs,
+           **c, "traced_s": wall, "busy_s": busy, "idle": idle,
+           "idle_untraced": 1 - busy / secs}
+    log(phase, f"sharded thinning: route {fn.route}, equal to the "
+        f"single-device skeleton {same}; traced {wall:.4f} s, device busy"
+        f" {busy:.4f} s, idle {idle:.1%} traced, "
+        f"{rec['idle_untraced']:.1%} untraced")
+    if not (same and fn.route == "graph"):
+        raise SystemExit(f"{phase} sharded thinning: route {fn.route}, "
+                         f"equal to the single-device skeleton {same}")
+    return rec
+
+
 def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     """mini_pipeline_sharded on ``raw`` (the pipeline_512 raw volume for
     sharded_512, the Speck one for speck_sharded) over a 2x2 mesh of
@@ -2537,7 +2636,12 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
         alloc.append((torch.cuda.memory_stats()[
             "allocated_bytes.all.allocated"] - a0, n_sw))
         del g
-    del v_sh
+    # the sharded grow and thinning driven by graphs against their eager
+    # loops, each traced once
+    grow_rec = _sharded_grow_vs_eager(phase, v_sh, seeds_sh)
+    mask_sh = shard_volume(mask1, mesh)
+    thin_rec = _sharded_thin_vs_eager(phase, mask_sh, skel1)
+    del v_sh, mask_sh
     alloc_per_sweep = (alloc[1][0] - alloc[0][0]) / max(
         alloc[1][1] - alloc[0][1], 1)
     out = {"phase": phase, "mesh": "2x2 of cuda:0",
@@ -2550,7 +2654,11 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
            "refresh_bytes_per_iteration": refresh_bytes,
            "repad_bytes_per_iteration": repad_bytes,
            "grow_allocated_bytes_per_sweep": alloc_per_sweep,
-           "host_reads_per_iteration": 1, "peak_mib": max(peaks),
+           "host_reads_per_iteration": grow_rec["host_reads_per_iteration"],
+           "sharded_grow": grow_rec, "sharded_thinning": thin_rec,
+           "traced_grow_s": grow_rec["traced_s"],
+           "traced_grow_busy_s": grow_rec["busy_s"],
+           "traced_grow_idle": grow_rec["idle"], "peak_mib": max(peaks),
            "single_vesselness_peak_mib": peaks_v,
            "pressure_bit_equal": bit_equal,
            "unsharded_two_runs_rel_spread": spread,
@@ -2567,16 +2675,11 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
                                          sigmas=SHARDED_SIGMAS)
         out["gates"]["f_k6b_blocks"] = _sharded_k6b(phase, v_sh, v1, seeds,
                                                     seeds_sh)
-        wall, busy, idle = device_idle(lambda: sharded.region_grow(
-            v_sh, seeds_sh, max_segment_size=10 ** 7,
-            iter_max=SHARDED_ITERS))
         wall1, busy1, idle1 = device_idle(lambda: region_grow(
             v1, seeds, max_segment_size=10 ** 7, iter_max=SHARDED_ITERS))
-        out.update({"traced_grow_s": wall, "traced_grow_busy_s": busy,
-                    "traced_grow_idle": idle, "single_grow_traced_s": wall1,
+        out.update({"single_grow_traced_s": wall1,
                     "single_grow_idle": idle1})
-        traced = (f"traced grow {wall:.4f} s, device busy {busy:.4f} s "
-                  f"({idle:.1%} idle), single-device grower {wall1:.4f} s "
+        traced = (f"traced single-device grower {wall1:.4f} s "
                   f"({idle1:.1%} idle); ")
     log(phase, f"median total {out['median_s']:.4f} s (runs "
         f"{', '.join(f'{t:.4f}' for t in totals)}); stage medians "
@@ -2591,8 +2694,11 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
         f"refresh {refresh_bytes} bytes per iteration (re-padding every "
         f"block would write {repad_bytes}); device bytes allocated per "
         f"sweep {alloc_per_sweep:.0f} (grows of {alloc[0][1]} and "
-        f"{alloc[1][1]} sweeps); 1 host read per "
-        f"iteration; {traced}peak device memory {max(peaks):.0f} MiB "
+        f"{alloc[1][1]} sweeps); {out['host_reads_per_iteration']:.4f} "
+        f"host reads per iteration; traced sharded grow "
+        f"{grow_rec['traced_s']:.4f} s, device busy {grow_rec['busy_s']:.4f}"
+        f" s ({grow_rec['idle']:.1%} idle); {traced}peak device memory "
+        f"{max(peaks):.0f} MiB "
         f"(the whole-volume vesselness {peaks_v}); "
         f"the pipeline's pressures {out['pipeline_pressures']}; dp rows "
         f"on its {n_nodes}-node network ({bp_from}) bit-equal to the "
@@ -3475,6 +3581,30 @@ def _finite(v):
     return True
 
 
+DISTRIBUTE_STEPS = 40   # distribute_flow_study's max_iter
+
+
+def _fit_vs_eager(res, run):
+    """distribute's fit graph-driven (``res``, just run; step 1 eager,
+    step 2 captured, 3-40 replayed) against ``run("cuda")`` in the eager
+    loop: within 1e-9 (relative), the steps, captures and replays as
+    said -> a record."""
+    fit = importlib.import_module(
+        "arterynetwork_tpu_torch.flow.distribute").distribute_flow
+    rec = {k: getattr(fit, k) for k in ("steps", "captures", "replays",
+                                        "capture_s")}
+    with eager_loop():
+        eager, e_secs = _sync_s(lambda: run("cuda"))
+    rec.update(eager_loop_s=e_secs, eager_captures=fit.captures,
+               max_rel_eager=max(_rel(res[k], eager[k]) for k in res))
+    if not (rec["max_rel_eager"] <= 1e-9 and rec["eager_captures"] == 0
+            and (rec["steps"], rec["captures"], rec["replays"])
+            == (DISTRIBUTE_STEPS, 1, DISTRIBUTE_STEPS - 1)):
+        raise SystemExit(f"studies distribute: the graph-driven fit "
+                         f"against the eager loop: {rec}")
+    return rec
+
+
 def phase_studies():
     """The study drivers at depth 10 on the card; the solver drivers also
     on the CPU, which they must equal within 1e-9."""
@@ -3504,9 +3634,12 @@ def phase_studies():
             if not _finite(res):
                 raise SystemExit(f"studies {name}: non-finite output")
             msg = f"{name}: {secs:.3f} s on the card"
-            if loops:           # distribute's fit runs no Newton solve
+            if loops:
                 out["graphs"][name] = _graph_solves(f"studies {name}", loops)
                 msg += f" (flow solves graph-driven: {out['graphs'][name]})"
+            if name == "distribute":
+                out["distribute_fit"] = _fit_vs_eager(res, run)
+                msg += f"; the fit {out['distribute_fit']}"
             if name in ("tp_fit", "gbm4", "gbm5", "gbm5_dw", "distribute"):
                 t0 = time.perf_counter()
                 ref = run("cpu")

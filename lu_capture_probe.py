@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Which of torch's LU solves a CUDA graph can capture, on one card.
 
-    python3 lu_capture_probe.py
+    python3 lu_capture_probe.py [--distribute-only]
 
 For ``torch.linalg.solve_ex`` on a batch of T weighted-Laplacian-like
 systems of n unknowns (T in {1, 3, 8}, n from 4 to 4096, f32 and f64),
@@ -13,8 +13,11 @@ refused is reported and the probe goes on.  The flow solver
 (flow/solvers.py, flow/tree_solver.py ``lu_steps``) runs a batch's LU
 between two graphs because of what this prints.  The index ops the
 solver's steps use (``x[:, idx] = v``, ``cand[rows, first]``) and the
-``stop`` update are probed first.  Exits non-zero without a CUDA
-device.
+``stop`` update are probed first, then the one unbatched f64 system
+of 2,046 unknowns that ``flow/distribute.distribute_flow`` solves twice
+in each Gauss-Newton step at the study CLI's depth 10 (its step is
+captured whole; ``--distribute-only`` stops after it).  Exits non-zero
+without a CUDA device.
 """
 
 import subprocess
@@ -98,6 +101,12 @@ def main():
     probe("cand[rows, first]", lambda: cand[rows, first])
     probe("stop from any()", lambda: stop.copy_(
         torch.where(active.any(), -1, 0)))
+    A, b = _system(1, 2046, torch.float64, 2046, dev)
+    A, b = A[0].contiguous(), b[0].contiguous()
+    probe("solve_ex n=2046 float64 unbatched (distribute, depth 10)",
+          lambda: torch.linalg.solve_ex(A, b)[0])
+    if "--distribute-only" in sys.argv[1:]:
+        return 0
     for dtype in (torch.float32, torch.float64):
         for T in (1, 3, 8):
             for n in (4, 6, 16, 17, 33, 100, 513, 2000, 4096):

@@ -16,7 +16,10 @@ bit, with the launches and stop reads one pass each makes, and the
 flow solver's graph-driven loops (each Newton step, CG block and
 refinement step a captured graph) likewise, with its host reads, and
 the device thinning's (a wave and a final pass) and the components'
-(a labelling round) likewise, with their passes and host reads.  This
+(a labelling round) likewise, with their passes and host reads, and on
+a 2x2 mesh of one card's slots the sharded grower's (two sweeps) and
+the sharded thinning's loops likewise, and distribute's Gauss-Newton
+steps within 1e-9 of the eager loop (its merge sums use atomics).  This
 file
 imports neither JAX nor the JAX package, so it also runs on a machine
 that has only PyTorch:
@@ -953,3 +956,121 @@ def test_subfield_index_on_card_matches_cpu(cuda):
     for shape, origin in (((7, 2, 9), (0, 0, 0)), ((5, 6, 3), (3, 258, 7))):
         assert torch.equal(_subfield_index(shape, origin, cuda).cpu(),
                            _subfield_index(shape, origin))
+
+
+# ----------------------------------------------------------------------
+# the sharded grower's and thinning's loops and distribute's fit on the
+# card, on a 2x2 mesh whose slots repeat one card
+# ----------------------------------------------------------------------
+def _mesh_2x2(cuda):
+    from arterynetwork_tpu_torch.parallel.halo import make_volume_mesh
+
+    return make_volume_mesh([torch.device(cuda.type, 0)] * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("iter_max", [1, 2, 300])
+def test_graph_driven_sharded_grower_matches_eager_loop(cuda, iter_max,
+                                                        monkeypatch):
+    """The sharded grower's two sweeps (A -> B, B -> A), each a captured
+    graph replayed, equal the eager loop bit for bit (mask, iterations,
+    count, stop reason) with the same launches (K2 once a block and
+    sweep, K6b twice a block) and one stop read per sweep plus one."""
+    from arterynetwork_tpu_torch.parallel import sharded
+    from arterynetwork_tpu_torch.parallel.halo import shard_volume
+
+    vol, seed = tube_phantom((48, 48, 48))
+    mesh = _mesh_2x2(cuda)
+
+    def run():
+        n0, l0 = _launch_counts(), _loop_counts()
+        res = sharded.region_grow(shard_volume(vol, mesh),
+                                  shard_volume(seed, mesh),
+                                  max_segment_size=10 ** 6,
+                                  iter_max=iter_max)
+        torch.cuda.synchronize()
+        key = [t.cpu() for t in (res.segmented_map.gather(), res.iterations,
+                                 res.segmented_count, res.stop_reason)]
+        return (key, {k: v - n0[k] for k, v in _launch_counts().items()},
+                [a - b for a, b in zip(_loop_counts(), l0)],
+                sharded.region_grow.route)
+
+    key, launched, (reads, captures, replays), route = run()
+    with monkeypatch.context() as m:
+        m.setattr(grow_loop, "drive", grow_loop.host_loop)
+        e_key, e_launched, (e_reads, e_captures, e_replays), _ = run()
+    assert route == "graph"
+    assert all(torch.equal(a, b) for a, b in zip(key, e_key))
+    passes = int(key[1]) + (int(key[3]) == 0)
+    want = {k: 0 for k in launched}
+    want.update(region_grow_sweep=4 * passes, masked_histogram1=8)
+    assert launched == e_launched == want
+    assert reads == e_reads == passes + 1
+    assert (captures, replays) == (2 if passes > 1 else 0,
+                                   max(passes - 1, 0))
+    assert e_captures == e_replays == 0
+    if iter_max == 300:
+        assert int(key[3]) == 0 and passes > 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_waves", [1, 64])
+@pytest.mark.parametrize("vol", ["phantom", "blob"])
+def test_graph_driven_sharded_thinning_matches_eager_loop(cuda, vol,
+                                                          max_waves,
+                                                          monkeypatch):
+    """The sharded thinning's wave and final passes (8 halo exchanges
+    and subfields each), replayed from captured graphs, equal the eager
+    loop and the single-device thinning bit for bit, with the same
+    passes, 1 + passes host reads and a replay per pass after each key's
+    second."""
+    from arterynetwork_tpu_torch.ops import thinning as tt
+    from arterynetwork_tpu_torch.parallel import sharded
+    from arterynetwork_tpu_torch.parallel.halo import shard_volume
+
+    mask = torch.from_numpy(np.asarray(_thin_volume(vol))).to(cuda)
+    mesh = _mesh_2x2(cuda)
+    graph, eager, c, ec = _graph_vs_eager(
+        lambda: sharded.skeletonize(shard_volume(mask, mesh),
+                                    max_waves).gather(),
+        lambda: _loop_counts_of(sharded.skeletonize,
+                                ("wave_passes", "final_passes", "route")),
+        monkeypatch)
+    assert torch.equal(graph, eager)
+    assert torch.equal(graph, tt.skeletonize(mask, max_waves).cpu())
+    assert c["route"] == "graph"
+    w, f = c["wave_passes"], c["final_passes"]
+    assert (w, f, c["reads"]) == (ec["wave_passes"], ec["final_passes"],
+                                  ec["reads"])
+    assert c["reads"] == 1 + w + f and w >= 1
+    assert (c["captures"], c["replays"]) == (
+        (w >= 2) + (f >= 2), max(w - 1, 0) + max(f - 1, 0))
+
+
+@pytest.mark.gpu
+def test_graph_driven_fit_matches_eager_loop(cuda, monkeypatch):
+    """distribute's Gauss-Newton steps at depth 8, step 1 eager, step 2
+    captured, 3-40 replayed: within 1e-9 (relative to the largest
+    magnitude) of the eager loop, whose merge sums use atomics too."""
+    from arterynetwork_tpu_torch.flow import distribute as pd
+    from arterynetwork_tpu_torch.graphs import (generate_tree,
+                                                set_network_properties)
+
+    rng = np.random.default_rng(0)
+    net = set_network_properties(generate_tree(max_depth=8, rng=rng),
+                                 rng=rng)
+    system = pd.build_distribute_system(net, 1e-5, 13000.0, device=cuda)
+    graph = pd.distribute_flow(system, max_iter=40)
+    counts = (pd.distribute_flow.steps, pd.distribute_flow.captures,
+              pd.distribute_flow.replays)
+    with monkeypatch.context() as m:
+        m.setattr(grow_loop, "loop_for",
+                  lambda *args, **kw: grow_loop.HostLoop())
+        eager = pd.distribute_flow(system, max_iter=40)
+    assert counts == (40, 1, 39)
+    assert pd.distribute_flow.captures == pd.distribute_flow.replays == 0
+    for a, b in zip(graph, eager):
+        a, b = a.cpu().double(), b.cpu().double()
+        assert torch.all(torch.isfinite(a))
+        assert float((a - b).abs().max()) <= 1e-9 * max(
+            float(b.abs().max()), 1e-300)

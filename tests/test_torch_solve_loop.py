@@ -540,6 +540,13 @@ def test_in_place_newton_matches_jax(solver, dtype, T, refine):
 _HOST_READS = {torch.ops.aten._local_scalar_dense.default}
 
 
+def _ptr(t):
+    """Where a tensor's storage lies, or None for a tensor with no
+    storage (forward-mode AD's zero tangents, ``_efficientzerotensor``):
+    a constant, never written."""
+    return None if t._is_zerotensor() else t.untyped_storage().data_ptr()
+
+
 class _Record(TorchDispatchMode):
     """What a capture records: every aten op, in order, with its
     arguments and outputs.  A host read raises, as capture refuses it."""
@@ -561,12 +568,11 @@ class _Record(TorchDispatchMode):
             writes = True
             t = args[i] if i < len(args) else kwargs.get(a.name)
             if (isinstance(t, torch.Tensor)
-                    and t.untyped_storage().data_ptr() not in g.made):
+                    and _ptr(t) not in g.made):
                 g.saved.append((t, t.clone()))
         out = func(*args, **kwargs)
         if not (writes or func.is_view):
-            g.made.update(o.untyped_storage().data_ptr()
-                          for o in tree_flatten(out)[0]
+            g.made.update(_ptr(o) for o in tree_flatten(out)[0]
                           if isinstance(o, torch.Tensor))
         g.ops.append((func, args, kwargs, out))
         return out
@@ -601,9 +607,8 @@ class _StandIn:
             for func, args, kwargs, out in self.ops:
                 new = func(*args, **kwargs)
                 for o, n in zip(tree_flatten(out)[0], tree_flatten(new)[0]):
-                    if (isinstance(o, torch.Tensor)
-                            and o.untyped_storage().data_ptr()
-                            != n.untyped_storage().data_ptr()):
+                    if (isinstance(o, torch.Tensor) and _ptr(o) is not None
+                            and _ptr(o) != _ptr(n)):
                         o.copy_(n)
 
     def __init__(self):
