@@ -20,17 +20,24 @@ gives two steps, A -> B and B -> A), while ``stop`` < 0, and returns how
 many ran:
 
 * CPU tensors take ``host_loop``: a plain loop that reads ``stop`` once
-  per iteration;
-* CUDA tensors take ``graph_loop``, on a side stream: iteration 1 runs
-  eagerly, which also warms up what capture cannot do (cuBLAS's
-  workspace for ``K @ hist``, the kernels' one-time attribute calls);
-  then each step is captured once as a CUDA graph, all in one memory
-  pool, and the graphs are replayed in turn, one iteration per replay.
-  ``stop`` is read once before the loop and once after each iteration,
-  through a pinned host word.
-
-So a grow reads ``stop`` (iterations run + 1) times, the JAX loop's
-passes one by one.
+  per iteration, so a grow reads it (iterations run + 1) times, the JAX
+  loop's passes one by one;
+* CUDA tensors take ``graph_loop``, on a side stream: ``stop`` is read
+  once before the loop, iteration 1 runs eagerly (which also warms up
+  what capture cannot do: cuBLAS's workspace for ``K @ hist``, the
+  kernels' one-time attribute calls) and ``stop`` is read again; then
+  each step is captured once as a CUDA graph, all in one memory pool,
+  and kept uninstantiated (``keep_graph=True``); ``ops/graph_while``
+  builds around them one graph whose conditional WHILE node runs the
+  steps in turn while ``stop`` < 0 on the device (csrc/graph_while.cu,
+  the counterpart of the JAX loop's ``cond``), the graph is launched
+  once, and ``stop``, the device's count of steps run and its count of
+  the WHILE node's head and tail launches are read together, through
+  three pinned host words.  So a grow reads ``stop``
+  min(passes, 2) + 1 times whatever its iterations, and a grow of 0 or
+  1 passes captures nothing.  A build, instantiation or launch of the
+  while graph that fails raises: nothing falls back to replays or to
+  the eager loop.
 
 The flow solver drives its own loops (a Newton loop, CG blocks within a
 Newton step, a fixed number of refinement steps), and the thinning and
@@ -58,11 +65,16 @@ raises if the objects ``watch()`` lists changed during a capture.
 
 The kernels' wrappers count their launches in Python, which runs once,
 while a step is captured, and so may a caller's own counters.  A capture
-takes out what it added to each counter and each replay adds it back,
-so a counter counts what ran.  ``read_stop.reads`` counts the growers'
-host reads of their ``stop``, ``graph_loop.captures`` the graphs they
-captured, ``graph_loop.replays`` their replays and
-``graph_loop.capture_s`` the seconds spent capturing; a loop object counts
+takes out what it added to each counter and each replay adds it back
+(``graph_loop``: each step's additions times the times it ran), so a
+counter counts what ran.  ``read_stop.reads`` counts the growers' host
+reads of their ``stop``, ``graph_loop.captures`` the graphs they
+captured, ``graph_loop.replays`` the steps run from captured graphs,
+``graph_loop.launches`` the while graphs launched and
+``graph_loop.capture_s`` the seconds spent capturing and building them
+(``graph_while.set_while.launches`` and ``count_step.launches`` count
+the while graphs' two kernels, as the kernels counted themselves on the
+device); a loop object counts
 its own in ``reads``, ``captures``, ``replays``, ``capture_s`` (seconds
 spent capturing) and ``runs`` (steps run, by key), which the solver
 hands to its ``SolveStats``.
@@ -75,6 +87,8 @@ import inspect
 import time
 
 import torch
+
+from . import graph_while
 
 
 def _read(stop, pinned=None):
@@ -96,6 +110,17 @@ def read_stop(stop, pinned=None):
 
 
 read_stop.reads = 0
+
+
+def read_stop_and_counts(words, pinned):
+    """A grower's one read of its ``stop`` (``words[0]``) and the while
+    graph's device counts (``words[1:]``) together: one copy into the
+    pinned host words and a synchronise, counted in
+    ``read_stop.reads``."""
+    read_stop.reads += 1
+    pinned.copy_(words, non_blocking=True)
+    torch.cuda.current_stream(words.device).synchronize()
+    return [int(w) for w in pinned]
 
 
 def host_loop(steps, stop):
@@ -198,16 +223,19 @@ class GraphLoop(HostLoop):
         self.reads += 1
         return _read(stop, self.pinned)
 
-    def capture(self, step):
+    def capture(self, step, keep_graph=False):
         """``step`` captured into the loop's pool -> (graph, what it
-        added to each counter); the counters are left as they were."""
+        added to each counter); the counters are left as they were.
+        ``keep_graph``: the graph is kept uninstantiated, for its
+        ``raw_cuda_graph()`` (never ``replay()`` it)."""
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         counters = self.counters + [(w, "launches") for w in _counted()]
         before = [getattr(o, a) for o, a in counters]
         watched = None if self.watch is None else self.watch()
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
+                 else torch.cuda.CUDAGraph())
         # thread_local: another thread of the caller may use the card
         # meanwhile; this thread's unsafe calls still raise
         graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
@@ -273,8 +301,10 @@ class GraphLoop(HostLoop):
 
 def graph_loop(steps, stop):
     """Run ``steps`` in turn while ``stop`` < 0: the first eagerly, then
-    each captured once as a CUDA graph and replayed -> steps run."""
+    the rest in one launch of a while graph around each step captured
+    once -> steps run."""
     loop = GraphLoop(stop.device)
+    loop_graph = None
     try:
         with loop.stream():
             if read_stop(stop, loop.pinned) >= 0:
@@ -283,21 +313,48 @@ def graph_loop(steps, stop):
             if read_stop(stop, loop.pinned) >= 0:
                 return 1
             order = steps[1:] + steps[:1]
-            graphs = [loop.capture(s) for s in order]
-            n = 1
-            while True:
-                loop.replay(*graphs[(n - 1) % len(graphs)])
-                n += 1
-                if read_stop(stop, loop.pinned) >= 0:
-                    return n
+            graphs = [loop.capture(s, keep_graph=True) for s in order]
+            # stop, steps run (count_step), set_while's launches
+            words = stop.new_zeros(3)
+            t0 = time.perf_counter()
+            loop_graph = graph_while.WhileGraph(
+                [g.raw_cuda_graph() for g, _ in graphs], stop, words[1:])
+            loop.capture_s += time.perf_counter() - t0
+            loop_graph.launch(loop.side)
+            graph_loop.launches += 1
+            words[:1].copy_(stop.reshape(1))
+            code, ran, heads = read_stop_and_counts(
+                words, torch.empty(3, dtype=torch.int32, pin_memory=True))
+            if code < 0 or ran < 1:
+                raise RuntimeError(f"the while graph ended with stop {code} "
+                                   f"after {ran} steps")
+            _count_runs(loop, graphs, ran, heads)
+            return 1 + ran
     finally:
+        if loop_graph is not None:      # after the side stream finished
+            loop_graph.close()
         graph_loop.captures += loop.captures
         graph_loop.replays += loop.replays
         graph_loop.capture_s += loop.capture_s
 
 
+def _count_runs(loop, graphs, ran, heads):
+    """Add what each captured step adds to the counters times the times
+    it ran (step k of s ran ceil((ran - k) / s) times), and the while
+    graph's kernel launches as the kernels counted them on the device:
+    ``count_step`` ``ran``, ``set_while`` ``heads``."""
+    for k, (_, counts) in enumerate(graphs):
+        times = -(-(ran - k) // len(graphs))
+        for (o, a), n in counts:
+            setattr(o, a, getattr(o, a) + n * times)
+    loop.replays += ran
+    graph_while.count_step.launches += ran
+    graph_while.set_while.launches += heads
+
+
 graph_loop.captures = 0
 graph_loop.replays = 0
+graph_loop.launches = 0
 graph_loop.capture_s = 0.0
 
 

@@ -17,9 +17,11 @@ math and its operation order:
 
 Termination as in the reference (:91-104): no flips, the size cap, or the
 iteration cap.  The JAX ``while_loop`` becomes one step function that
-updates the state in place, run by ops/grow_loop.py: replayed as a
-captured CUDA graph on a card, a host loop on the CPU; either reads the
-stop code once per iteration.
+updates the state in place, run by ops/grow_loop.py: on a card captured
+once as a CUDA graph and run, with the loop's condition, by one launch
+of a graph with a conditional WHILE node (the stop code read
+min(passes, 2) + 1 times); on the CPU a host loop that reads it once per
+iteration.
 
 ``backend``: "auto" takes the fused sweep (ops/region_grow_fused.py, the
 K2 kernel, in f32) for f32 data on a CUDA device with no excluded mask

@@ -179,7 +179,10 @@ def region_grow_frontier(data, seed_mask, H: float = DEFAULT_H,
     """Frontier-tile region growing (same fixed point and trajectory as
     ``region_grow`` with ``excluded_mask=None``) on ``device`` (by
     default the device of a ``data`` tensor; host arrays go to the
-    card).  Always f32, as the JAX grower traces under x32."""
+    card).  Always f32, as the JAX grower traces under x32.  Its step
+    goes to ``grow_loop.drive``: on a card every pass after the first
+    runs in one while-graph launch and ``stop`` is read min(passes, 2) +
+    1 times; on the CPU once per pass plus once."""
     if num_bins % 32 or not 32 <= num_bins <= 256:
         raise ValueError("num_bins must be a multiple of 32, at most 256")
     device = _resolve_device(data, device)

@@ -263,7 +263,10 @@ def region_grow_fused(data, seed_mask, H: float = DEFAULT_H,
     """Full-grid region growing with the fused sweep (same fixed point as
     the full-grid path with ``excluded_mask=None``, 256 bins), on
     ``device`` (by default the device of a ``data`` tensor; host arrays go
-    to the card).  Always f32, as the JAX grower traces under x32."""
+    to the card).  Always f32, as the JAX grower traces under x32.  Its
+    two steps (A -> B, B -> A) go to ``grow_loop.drive``: on a card every
+    pass after the first runs in one while-graph launch and ``stop`` is
+    read min(passes, 2) + 1 times; on the CPU once per pass plus once."""
     device = _resolve_device(data, device)
     data = _as_device(data, device).to(torch.float32)
     seg0 = _as_device(seed_mask, device, torch.bool)

@@ -42,10 +42,13 @@ ops/region_grow.py:250, ops/thinning.py:173,187).  Here each iteration
 a step over state made before the loop and updated in place, run by
 ``ops/grow_loop`` as on one device.  ``loop_route`` picks how: when
 every block is on one CUDA device each step is captured once as a CUDA
-graph and replayed ("graph"); on CPU blocks, and on blocks spread over
-several cards, which one graph cannot span, the steps run eagerly
-("host").  Either way the host reads ``stop`` once before the loop and
-once per iteration.
+graph ("graph": the grower's sweeps after the first then run in one
+launch of a graph with a conditional WHILE node, and the host reads
+``stop`` min(sweeps, 2) + 1 times; the thinning's passes are replayed,
+one read each after one before the loop); on CPU blocks, and on blocks
+spread over several cards, which one graph cannot span, the steps run
+eagerly ("host": ``stop`` read once before the loop and once per
+iteration).
 
 The sharded pipeline (parallel/pipeline_sharded.py) calls these directly;
 the single-device functions do not dispatch here.  On a mesh whose slots
@@ -181,9 +184,10 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
 
     The sweeps go to ``grow_loop.drive`` on the "graph" route
     (``loop_route``: on a card, sweep 1 eager, then both steps captured
-    and replayed) and to ``grow_loop.host_loop`` on the "host" route;
-    ``stop`` is read once before the loop and once per sweep
-    (``grow_loop.read_stop.reads``).  The last call's route is
+    and run by one while-graph launch; ``stop`` read min(sweeps, 2) + 1
+    times) and to ``grow_loop.host_loop`` on the "host" route (``stop``
+    read once before the loop and once per sweep); the reads are counted
+    in ``grow_loop.read_stop.reads``.  The last call's route is
     ``region_grow.route``."""
     data = data.map(lambda b: b.to(torch.float32))
     idxs = data.indices()

@@ -29,9 +29,12 @@ under build/grower_pair/), what chip_smoke.py's grower phases run:
 Each: a warm-up, then 3 timed runs (host clock ended by a synchronise),
 then one run traced by torch.profiler for the device's idle share
 (chip_smoke.py's ``device_idle``: 1 - busy / wall, an upper bound, the
-tracer's host cost included; and 1 - busy / the timed runs' median); a
+tracer's host cost included; and 1 - busy / the timed runs' median) and
+the device time of that run by event name (events, microseconds); a
 tree with ops/grow_loop.py also gives its host reads of ``stop``, graphs
-captured and replays per grow.  The iterations, count, stop reason and a
+captured and steps run from them per grow, and, with its while graph,
+the while graphs launched and the seconds spent capturing and building
+them.  The iterations, count, stop reason and a
 checksum of each mask (and active map, and value map) must agree between
 all the runs.  The whole record goes to ``--json`` (by default
 build/grower_pair.json) and, as one JSON line, last to stdout.  Exits
@@ -120,13 +123,15 @@ def worker(tree):
     def loop_counts(fn):
         if grow_loop is None:
             return None
+        g = grow_loop.graph_loop
         grow_loop.read_stop.reads = 0
-        grow_loop.graph_loop.captures = grow_loop.graph_loop.replays = 0
+        g.captures = g.replays = 0
+        g.launches, g.capture_s = 0, 0.0
         fn()
         torch.cuda.synchronize()
         return {"reads": grow_loop.read_stop.reads,
-                "captures": grow_loop.graph_loop.captures,
-                "replays": grow_loop.graph_loop.replays}
+                "captures": g.captures, "replays": g.replays,
+                "launches": g.launches, "capture_s": g.capture_s}
 
     def timed(fn):
         fn()                                   # warm-up
@@ -141,11 +146,14 @@ def worker(tree):
 
     def grower(fn):
         res, times = timed(fn)
-        wall, busy, idle = cs.device_idle(fn)
+        names = {}
+        wall, busy, idle = cs.device_idle(fn, names)
         med = statistics.median(times)
         return {"times_s": times, "median_s": med,
                 "traced_wall_s": wall, "busy_s": busy, "idle": idle,
                 "idle_untraced": 1 - busy / med,
+                "device_by_name": dict(sorted(names.items(),
+                                              key=lambda kv: -kv[1][1])),
                 "loop": loop_counts(fn),
                 "result": [int(res.iterations), int(res.segmented_count),
                            int(res.stop_reason),

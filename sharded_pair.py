@@ -34,7 +34,8 @@ median, the longest idle gaps with the device and host events around
 them), the peak memory allocated and reserved over the case's five calls
 (the allocator's cache emptied before each case), and, where the tree
 keeps them, its host reads of ``stop``, passes, graphs captured, replays
-and seconds spent capturing.  The voxel cases' results (a checksum) must
+and seconds spent capturing (and the grower's while graphs launched).
+The voxel cases' results (a checksum) must
 agree between all the runs of all the trees; the fit's fractions, edge
 flows and RMS mismatch within 1e-9 (relative; its merge sums use
 atomics on the card).  The whole record goes to ``--json`` (by default
@@ -145,6 +146,7 @@ def worker(tree):
         return {"reads": grow_loop.read_stop.reads,
                 "captures": grow_loop.graph_loop.captures,
                 "replays": grow_loop.graph_loop.replays,
+                "launches": getattr(grow_loop.graph_loop, "launches", None),
                 "capture_s": getattr(grow_loop.graph_loop, "capture_s",
                                      None),
                 "route": getattr(sharded.region_grow, "route", None)}
@@ -178,6 +180,7 @@ def worker(tree):
                 grow_loop.graph_loop.captures = 0
                 grow_loop.graph_loop.replays = 0
                 grow_loop.graph_loop.capture_s = 0.0
+                grow_loop.graph_loop.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = fn()

@@ -21,18 +21,21 @@ iteration cap, a seed already at the cap: no iteration):
   * ``host_loop`` alternating its steps, and ``drive`` taking it for CPU
     tensors;
   * ``graph_loop``'s bookkeeping, with a stand-in for torch.cuda's stream
-    and graph calls (a "captured" step is recorded, and runs at each
-    replay): the first step eager, each step captured once and replayed
-    in turn, the launch counters counting runs and not captures, one
-    stop read per iteration plus one, and a step that cannot be
-    captured raising.
+    and graph calls (a "captured" step is recorded, and runs when the
+    stand-in of csrc/graph_while.cu's library, ``FakeWhileLib``, runs
+    the while graph): the first step eager, each step captured once and
+    run in turn while stop < 0 by one launch, the launch counters
+    counting runs and not captures, min(passes, 2) + 1 stop reads, and a
+    step that cannot be captured raising (tests/test_torch_grow_while.py
+    has the rest of the while route's bookkeeping).
 
 The CUDA graphs themselves need a card: the ``gpu`` tests in
-tests/test_torch_kernels.py hold the graph-driven growers to this eager
-loop there.
+tests/test_torch_kernels.py and tests/test_torch_grow_while.py hold the
+graph-driven growers to this eager loop there.
 """
 
 import contextlib
+import ctypes
 import functools
 import importlib
 import types
@@ -43,7 +46,7 @@ import pytest
 import torch
 
 from arterynetwork_tpu.ops.region_grow import _region_grow_xla as j_xla
-from arterynetwork_tpu_torch.ops import grow_loop
+from arterynetwork_tpu_torch.ops import graph_while, grow_loop
 from arterynetwork_tpu_torch.ops import region_grow_fused as rfu
 from arterynetwork_tpu_torch.ops.histogram import (masked_histogram_one,
                                                    masked_histograms_best,
@@ -308,9 +311,12 @@ class _FakeCuda:
     the CPU.  Between capture_begin and capture_end ``capturing`` is the
     graph, and what would be enqueued (a step, a copy into the pinned
     word) is appended to its ops instead of run; a replay runs the ops
-    with ``replaying`` set (no Python of a step's own runs there)."""
+    with ``replaying`` set (no Python of a step's own runs there).
+    ``made`` maps each graph's ``raw_cuda_graph()`` handle to it."""
 
     class _Stream:
+        cuda_stream = 0
+
         def wait_stream(self, other):
             pass
 
@@ -318,8 +324,9 @@ class _FakeCuda:
             pass
 
     class _Graph:
-        def __init__(self, cuda):
-            self.cuda, self.ops = cuda, []
+        def __init__(self, cuda, keep_graph):
+            self.cuda, self.ops, self.keep = cuda, [], keep_graph
+            cuda.made[id(self)] = self
 
         def capture_begin(self, pool, capture_error_mode):
             self.cuda.modes.append((pool, capture_error_mode))
@@ -327,6 +334,10 @@ class _FakeCuda:
 
         def capture_end(self):
             self.cuda.capturing = None
+
+        def raw_cuda_graph(self):
+            assert self.keep, "raw_cuda_graph needs keep_graph=True"
+            return id(self)
 
         def replay(self):
             self.cuda.replaying = True
@@ -337,10 +348,11 @@ class _FakeCuda:
                 self.cuda.replaying = False
 
     class _Pinned:
-        """The pinned word: a copy into it is enqueued like a kernel."""
+        """The pinned words: a copy into them is enqueued like a
+        kernel."""
 
-        def __init__(self, cuda):
-            self.cuda, self.word = cuda, np.zeros(1, np.int32)
+        def __init__(self, cuda, n=1):
+            self.cuda, self.word = cuda, np.zeros(n, np.int32)
 
         def copy_(self, src, non_blocking=False):
             def op():
@@ -355,6 +367,7 @@ class _FakeCuda:
 
     def __init__(self):
         self.capturing, self.replaying, self.modes = None, False, []
+        self.made = {}
 
     def Stream(self, device=None):
         return self._Stream()
@@ -370,16 +383,83 @@ class _FakeCuda:
     def graph_pool_handle(self):
         return "pool"
 
-    def CUDAGraph(self):
-        return self._Graph(self)
+    def CUDAGraph(self, keep_graph=False):
+        return self._Graph(self, keep_graph)
 
 
-def _fake_torch(monkeypatch):
+class FakeWhileLib:
+    """csrc/graph_while.cu's entry points on the CPU, called as
+    ops/graph_while.py calls them: a build looks each step's graph up by
+    its raw handle (``graph_of``); a launch runs what the while graph
+    runs (set_while; while stop < 0: step 0, count_step, and for two
+    steps, if stop < 0, step 1 and count_step; set_while), reading stop
+    and adding to the two counts (count_step's, set_while's) at their
+    device pointers, as the kernels do, and logs it.
+    ``fail`` ("build", "instantiate" or "launch") makes that call return
+    an error with a message, as the library does."""
+
+    ERRORS = {"build": (801, b"step 0 holds a node of type 'host' (3), "
+                             b"which the body of a conditional node may "
+                             b"not hold"),
+              "instantiate": (1, b"cudaGraphInstantiate: invalid argument "
+                                 b"(CUDA error 1)"),
+              "launch": (700, b"cudaGraphLaunch: an illegal memory access "
+                              b"was encountered (CUDA error 700)")}
+
+    def __init__(self, graph_of, fail=None):
+        self.graph_of, self.fail = graph_of, fail
+        self.execs, self.log, self.destroyed = {}, [], []
+
+    def _failed(self, what, err):
+        rc, msg = self.ERRORS[what]
+        err.value = msg
+        return rc
+
+    def graph_while_build(self, steps, n_steps, stop, counts, out, err,
+                          err_len):
+        graphs = [self.graph_of(steps[i]) for i in range(n_steps)]
+        if self.fail in ("build", "instantiate"):
+            return self._failed(self.fail, err)
+        out[0], out[1] = 2 * len(self.execs) + 2, 2 * len(self.execs) + 3
+        self.execs[out[0]] = (graphs, stop, counts)
+        return 0
+
+    def graph_while_launch(self, exec_, stream, err, err_len):
+        if self.fail == "launch":
+            return self._failed("launch", err)
+        graphs, stop, counts = self.execs[exec_]
+        s = ctypes.c_int32.from_address(stop)
+        c = (ctypes.c_int32 * 2).from_address(counts)
+
+        def set_while():
+            c[1] += 1
+            self.log.append("set_while")
+            return s.value < 0
+
+        while set_while():
+            for k, g in enumerate(graphs):
+                if k and s.value >= 0:
+                    break
+                g.replay()
+                c[0] += 1
+                self.log.append("count_step")
+        return 0
+
+    def graph_while_destroy(self, exec_, graph, err, err_len):
+        self.destroyed.append((exec_, graph))
+        return 0
+
+
+def _fake_torch(monkeypatch, fail=None):
+    """graph_loop's torch on ``_FakeCuda`` and its while-graph library on
+    ``FakeWhileLib`` -> (the fake torch.cuda, the fake library)."""
     fake = _FakeCuda()
     monkeypatch.setattr(grow_loop, "torch", types.SimpleNamespace(
         cuda=fake, int32=torch.int32,
-        empty=lambda *a, pin_memory=False, **k: fake._Pinned(fake)))
-    return fake
+        empty=lambda *a, pin_memory=False, **k: fake._Pinned(fake, *a)))
+    lib = FakeWhileLib(fake.made.__getitem__, fail)
+    monkeypatch.setattr(graph_while, "_lib", lambda: lib)
+    return fake, lib
 
 
 def _counted_step(name, fake, ran, stop, last):
@@ -402,7 +482,7 @@ def _counted_step(name, fake, ran, stop, last):
 
 @pytest.mark.parametrize("last", [0, 1, 2, 7])
 def test_graph_loop_bookkeeping(monkeypatch, last):
-    fake = _fake_torch(monkeypatch)
+    fake, _ = _fake_torch(monkeypatch)
     stop = torch.tensor(0 if last == 0 else -1, dtype=torch.int32)
     ran = []
     steps = [_counted_step("ab", fake, ran, stop, last),
@@ -413,14 +493,14 @@ def test_graph_loop_bookkeeping(monkeypatch, last):
     assert grow_loop.graph_loop(steps, stop) == last
     assert ran == ["ab", "ba"] * (last // 2) + ["ab"] * (last % 2)
     assert rfu.fused_sweep_counts.launches - n0 == last
-    assert grow_loop.read_stop.reads == last + 1
+    assert grow_loop.read_stop.reads == min(last, 2) + 1
     assert grow_loop.graph_loop.replays == max(last - 1, 0)
     assert grow_loop.graph_loop.captures == (2 if last > 1 else 0)
     assert fake.modes == [("pool", "thread_local")] * (2 if last > 1 else 0)
 
 
 def test_graph_loop_raises_when_capture_fails(monkeypatch):
-    fake = _fake_torch(monkeypatch)
+    fake, _ = _fake_torch(monkeypatch)
     stop = torch.tensor(-1, dtype=torch.int32)
 
     def step():

@@ -11,8 +11,9 @@ integers and take the same decision words, so they must agree exactly.
 Then tests pin which grower ``region_grow`` takes: f64 data stays on
 the f64 full-grid path, on the card too, equal to the CPU's result.  The
 last ones hold the growers' graph-driven loop on the card (each
-iteration a captured CUDA graph, replayed) to the eager loop, bit for
-bit, with the launches and stop reads one pass each makes, and the
+iteration a captured CUDA graph, all run by one launch of a graph with
+a conditional WHILE node) to the eager loop, bit for bit, with the
+launches one pass makes and min(passes, 2) + 1 stop reads, and the
 flow solver's graph-driven loops (each Newton step, CG block and
 refinement step a captured graph) likewise, with its host reads, and
 the device thinning's (a wave and a final pass) and the components'
@@ -32,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from arterynetwork_tpu_torch.ops import grow_loop
+from arterynetwork_tpu_torch.ops import graph_while, grow_loop
 from arterynetwork_tpu_torch.ops import region_grow_fused as rgx
 from arterynetwork_tpu_torch.ops.histogram_kernels import (
     masked_histogram1, masked_histograms2, masked_histograms_plain)
@@ -664,6 +665,23 @@ def _loop_counts():
             grow_loop.graph_loop.replays)
 
 
+def _while_counts():
+    """While graphs launched, and their two kernels' launches as the
+    kernels counted them on the device (set_while, count_step)."""
+    return (grow_loop.graph_loop.launches, graph_while.set_while.launches,
+            graph_while.count_step.launches)
+
+
+def _while_want(passes, n_steps):
+    """_while_counts' deltas for a grow of ``passes`` passes of
+    ``n_steps`` steps: one launch for 2+ passes, set_while once before
+    the WHILE node and once per iteration of it, count_step once per
+    pass after the first."""
+    if passes < 2:
+        return (0, 0, 0)
+    return (1, 1 + -(-(passes - 1) // n_steps), passes - 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(48, 48, 48), (40, 37, 45)],
                          ids=["48", "ragged"])
@@ -672,22 +690,26 @@ def test_graph_driven_growers_match_eager_loop(cuda, grower, shape,
                                                monkeypatch):
     """Graph-driven and eager loops give the same bits; the graph run
     counts passes x kernels per pass (plus the launches before the
-    loop), reads stop once per pass plus once and replays a graph for
-    every pass after the first; a second call captures anew and gives
-    the same result."""
+    loop), reads stop min(passes, 2) + 1 times (once before the loop,
+    once after the eager pass, once after the one while-graph launch)
+    and runs a captured graph for every pass after the first, in one
+    while-graph launch whose two kernels counted themselves on the
+    device as often as the passes say (``_while_want``); a second call
+    captures anew and gives the same result."""
     fn = _growers(shape, cuda)[grower]
     runs = []
     for _ in range(2):
-        n0, l0 = _launch_counts(), _loop_counts()
+        n0, l0, w0 = _launch_counts(), _loop_counts(), _while_counts()
         res = fn()
         torch.cuda.synchronize()
         runs.append((_grow_key(res), {k: v - n0[k] for k, v in
                                       _launch_counts().items()},
-                     [a - b for a, b in zip(_loop_counts(), l0)]))
+                     [a - b for a, b in zip(_loop_counts(), l0)],
+                     tuple(a - b for a, b in zip(_while_counts(), w0))))
     with monkeypatch.context() as m:
         m.setattr(grow_loop, "drive", grow_loop.host_loop)
         eager = _grow_key(fn())
-    key, launched, (reads, captures, replays) = runs[0]
+    key, launched, (reads, captures, replays), whiles = runs[0]
     assert all(torch.equal(a, b) for a, b in zip(key, eager))
     assert all(torch.equal(a, b) for a, b in zip(key, runs[1][0]))
     assert runs[1][1:] == runs[0][1:]          # captured again, same work
@@ -698,8 +720,10 @@ def test_graph_driven_growers_match_eager_loop(cuda, grower, shape,
     want = {k: passes * per_pass.get(k, 0) + before.get(k, 0)
             for k in launched}
     assert launched == want
-    assert (reads, replays) == (passes + 1, passes - 1)
-    assert captures == (2 if grower == "fused" else 1)
+    assert (reads, replays) == (min(passes, 2) + 1, passes - 1)
+    n_steps = 2 if grower == "fused" else 1
+    assert captures == n_steps
+    assert whiles == _while_want(passes, n_steps)
 
 
 @pytest.mark.gpu
@@ -969,13 +993,16 @@ def _mesh_2x2(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("iter_max", [1, 2, 300])
+@pytest.mark.parametrize("iter_max", [1, 2, 3, 300])
 def test_graph_driven_sharded_grower_matches_eager_loop(cuda, iter_max,
                                                         monkeypatch):
     """The sharded grower's two sweeps (A -> B, B -> A), each a captured
-    graph replayed, equal the eager loop bit for bit (mask, iterations,
-    count, stop reason) with the same launches (K2 once a block and
-    sweep, K6b twice a block) and one stop read per sweep plus one."""
+    graph run by one launch of the while graph, equal the eager loop bit
+    for bit (mask, iterations, count, stop reason) with the same
+    launches (K2 once a block and sweep, K6b twice a block);
+    min(sweeps, 2) + 1 stop reads against the eager loop's sweeps +
+    1; the while graph's kernels counted on the device as often as the
+    eager loop's sweeps say they ran (``_while_want``)."""
     from arterynetwork_tpu_torch.parallel import sharded
     from arterynetwork_tpu_torch.parallel.halo import shard_volume
 
@@ -983,7 +1010,7 @@ def test_graph_driven_sharded_grower_matches_eager_loop(cuda, iter_max,
     mesh = _mesh_2x2(cuda)
 
     def run():
-        n0, l0 = _launch_counts(), _loop_counts()
+        n0, l0, w0 = _launch_counts(), _loop_counts(), _while_counts()
         res = sharded.region_grow(shard_volume(vol, mesh),
                                   shard_volume(seed, mesh),
                                   max_segment_size=10 ** 6,
@@ -993,22 +1020,25 @@ def test_graph_driven_sharded_grower_matches_eager_loop(cuda, iter_max,
                                  res.segmented_count, res.stop_reason)]
         return (key, {k: v - n0[k] for k, v in _launch_counts().items()},
                 [a - b for a, b in zip(_loop_counts(), l0)],
+                tuple(a - b for a, b in zip(_while_counts(), w0)),
                 sharded.region_grow.route)
 
-    key, launched, (reads, captures, replays), route = run()
+    key, launched, (reads, captures, replays), whiles, route = run()
     with monkeypatch.context() as m:
         m.setattr(grow_loop, "drive", grow_loop.host_loop)
-        e_key, e_launched, (e_reads, e_captures, e_replays), _ = run()
+        eager = run()
+    e_key, e_launched, (e_reads, e_captures, e_replays), e_whiles, _ = eager
     assert route == "graph"
     assert all(torch.equal(a, b) for a, b in zip(key, e_key))
     passes = int(key[1]) + (int(key[3]) == 0)
     want = {k: 0 for k in launched}
     want.update(region_grow_sweep=4 * passes, masked_histogram1=8)
     assert launched == e_launched == want
-    assert reads == e_reads == passes + 1
+    assert e_reads == passes + 1 and reads == min(passes, 2) + 1
     assert (captures, replays) == (2 if passes > 1 else 0,
                                    max(passes - 1, 0))
     assert e_captures == e_replays == 0
+    assert whiles == _while_want(passes, 2) and e_whiles == (0, 0, 0)
     if iter_max == 300:
         assert int(key[3]) == 0 and passes > 2
 

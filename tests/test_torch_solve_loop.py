@@ -583,6 +583,8 @@ class _StandIn:
     the CPU (see the module's docstring)."""
 
     class _Stream:
+        cuda_stream = 0
+
         def wait_stream(self, other):
             pass
 
@@ -592,6 +594,7 @@ class _StandIn:
     class _Graph:
         def __init__(self, cuda):
             self.cuda, self.ops, self.saved, self.made = cuda, [], [], set()
+            cuda.graphs[id(self)] = self
 
         def capture_begin(self, pool, capture_error_mode):
             self.cuda.modes.append((pool, capture_error_mode))
@@ -603,6 +606,9 @@ class _StandIn:
             for t, v in reversed(self.saved):   # capture ran nothing
                 t.copy_(v)
 
+        def raw_cuda_graph(self):
+            return id(self)
+
         def replay(self):
             for func, args, kwargs, out in self.ops:
                 new = func(*args, **kwargs)
@@ -612,7 +618,7 @@ class _StandIn:
                         o.copy_(n)
 
     def __init__(self):
-        self.modes = []
+        self.modes, self.graphs = [], {}    # graphs: raw handle -> graph
 
     def Stream(self, device=None):
         return self._Stream()
@@ -628,7 +634,7 @@ class _StandIn:
     def graph_pool_handle(self):
         return "pool"
 
-    def CUDAGraph(self):
+    def CUDAGraph(self, keep_graph=False):
         return self._Graph(self)
 
 
