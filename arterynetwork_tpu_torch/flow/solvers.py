@@ -46,6 +46,29 @@ the same steps run eagerly.  The host reads the same flags either way,
 through a pinned word on the card.  Restarts draw their scales eagerly
 and replay the same graphs; the final flows run once, eagerly.
 
+As ``jax.jit`` compiles a solve once per shape and static arguments,
+the port keeps a solve's graphs across calls: every tensor a step reads
+or writes lies in a cached entry (``_Solve``), one per key, in a cache
+per device and thread (``_CACHE_SIZE`` entries, least recently used
+evicted).  The key holds what shapes the captured work: T, N, M, E and
+the padded edge count, the fields' dtypes, the linear solver after
+"auto", ``max_iter``, ``tol`` (the captured stop test takes both as
+numbers), ``refine_steps``, ``restarts``, the sizes of the edge-sum
+plans and, for the tree route, the elimination plan's structure (the
+rounds' count, width and ranges of distinct parents, the loop core's
+size); and the loop route, ``grow_loop.loop_for`` itself, held in the
+key.  No key holds a system or a plan: a call copies its system's
+index tensors, plans and values into the entry (``load``) before any
+step runs, so a re-solve with new radii, new boundary pressures or
+another graph of the same sizes, in a new FlowSystem, hits.  On a hit
+every step is a replay; a miss makes an entry and captures as above,
+and, at the end of its call, each step that ran once (``GraphLoop.
+capture_pending``).  A capture, replay or copy-in that fails raises and
+drops the entry.  The results are new tensors, never an entry's.
+``clear_solve_cache()`` empties the cache; ``solve_cache_info()`` and a
+``SolveStats``' ``hits`` / ``misses`` count what it did.  On the CPU
+the same entries run their steps eagerly.
+
 Comparisons against Python constants keep the system's dtype (a Python
 float meets an f32 tensor as f32), as the JAX reference's weak typing
 does, so an f32 solve takes the same decisions.
@@ -59,7 +82,10 @@ bit (with one thread; the scalar tail loop rounds ``pow`` differently).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -68,7 +94,7 @@ from ..ops import grow_loop
 from .physics import edge_admittance, velocity_from_flow
 from .segment_sum import edge_plan, segment_sum
 from .system import FlowSystem
-from .tree_solver import laplacian_tree_steps, lu_steps
+from .tree_solver import _core_plan, laplacian_tree_steps, lu_steps
 
 _DP_EPS = 1e-9  # Pa; regularizes dQ/d(dP) at dP = 0
 _LS_STEPS = 20  # line-search candidates 1, 1/2, ..., 2^-19 (alpha > 1e-6)
@@ -93,13 +119,18 @@ class SolveStats:
     (one per Newton and refinement step); ``cg_steps``: per-row CG
     iterations, summed over the CG solves (None until a CG solve ran);
     on a card, ``captures``: CUDA graphs captured, ``replays``: graph
-    replays, ``capture_s``: seconds spent capturing."""
+    replays, ``capture_s``: seconds spent capturing; ``runs``: steps
+    run, by key (eager or replayed); ``hits`` / ``misses``: solves that
+    found their key in the cache of solves, or made an entry for it."""
     host_reads: int = 0
     linear_solves: int = 0
     cg_steps: Optional[torch.Tensor] = None
     captures: int = 0
     replays: int = 0
     capture_s: float = 0.0
+    runs: dict = dataclasses.field(default_factory=dict)
+    hits: int = 0
+    misses: int = 0
 
 
 def _two_sum(a, b):
@@ -172,6 +203,7 @@ class _CG:
             maxiter = min(8 * M + 64, 192 if dtype == torch.float32 else 2048)
         self.tol, self.maxiter = tol, maxiter
         self.ridge = 1e-7 if dtype == torch.float32 else 1e-13
+        self.system = system
         slot = system.node_unknown_index
         self.hu, self.tu = slot[system.head], slot[system.tail]
         self.diag = edge_plan(system, "diag")
@@ -187,6 +219,13 @@ class _CG:
                                   for _ in range(2))
         self.k = torch.zeros(T, dtype=torch.int32, device=dev)
         self.stop = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def load(self):
+        """The edges' unknown slots again, from the system's index
+        tensors (a cached solve's, just copied in)."""
+        slot = self.system.node_unknown_index
+        self.hu.copy_(slot[self.system.head])
+        self.tu.copy_(slot[self.system.tail])
 
     def begin(self, w, rhs):
         self.w.copy_(w[:, :self.w.shape[1]])
@@ -278,6 +317,8 @@ def _add_loop_counts(stats: SolveStats, loop):
     stats.captures += loop.captures
     stats.replays += loop.replays
     stats.capture_s += loop.capture_s
+    for key, n in loop.runs.items():
+        stats.runs[key] = stats.runs.get(key, 0) + n
 
 
 def _cached_plans(system: FlowSystem, plan):
@@ -360,6 +401,408 @@ def solve_pressure_newton_batch(
                    refine_steps, 0, stats)
 
 
+# the flow solves' cache: per device and thread, at most this many
+# entries, the least recently used evicted.  A study alternates between
+# at most two keys on one network (its unbatched solves and a T-row
+# batch); a comparison of the graph-driven solve with the eager loop
+# doubles that, and 8 leaves room for two networks.
+_CACHE_SIZE = 8
+_cache = threading.local()
+_cache_counts = {"hits": 0, "misses": 0, "evictions": 0}
+
+# the fields of a FlowSystem that the steps read, copied into an entry;
+# those they never read, left empty there; the elimination plan's
+# tensors, copied
+_GRAPH_FIELDS = ("head", "tail", "node_unknown_index", "node_fixed")
+_UNREAD_FIELDS = ("radius_m", "length_m", "c", "k", "node_fixed_pressure",
+                  "node_arg", "conserve_nodes", "bc_edge", "bc_velocity",
+                  "node_depth")
+_VALUE_FIELDS = ("radius_m", "length_m", "c", "k", "node_fixed_pressure")
+_PLAN_FIELDS = ("elim_nodes", "parents", "edge_idx", "valid", "core_nodes",
+                "core_slot")
+# the edge sums each linear solver's steps take, besides "net"
+_SUM_KINDS = {"dense": ("laplacian",), "tree": ("diag",),
+              "cg": ("diag", "div")}
+
+
+def _entries(device):
+    """This thread's cached solves on ``device``, least recent first."""
+    by_device = _cache.__dict__.setdefault("by_device", {})
+    return by_device.setdefault(str(device), collections.OrderedDict())
+
+
+def _drop(entries, key):
+    entry = entries.pop(key, None)
+    if entry is not None:
+        entry.loop.close()      # once its side stream has finished
+
+
+def clear_solve_cache(device=None):
+    """Drop this thread's cached flow solves on ``device`` (a
+    torch.device or a string), or on every device: the next solve of
+    each key captures its graphs anew."""
+    by_device = _cache.__dict__.get("by_device", {})
+    for name in list(by_device) if device is None else [str(device)]:
+        entries = by_device.get(name, {})
+        for key in list(entries):
+            _drop(entries, key)
+
+
+def solve_cache_info():
+    """The flow solves' cache: hits, misses and evictions since the
+    process started, and this thread's entries by device."""
+    return {**_cache_counts,
+            "entries": {d: len(e) for d, e in
+                        _cache.__dict__.get("by_device", {}).items()}}
+
+
+def _sum_key(plan):
+    """What shapes a captured segment sum: the plan's sizes."""
+    return (plan.num_sources, plan.depth, plan.width, plan.sign is None,
+            plan.slots is None)
+
+
+def _plan_key(system, plan):
+    """What shapes the captured tree elimination: the rounds' count and
+    width, each round's ranges of distinct parents and the loop core's
+    size and sum."""
+    return (tuple(plan.parents.shape), plan.core_size,
+            tuple(tuple((a, z) for a, z, _ in r[4]) for r in plan.rounds),
+            _sum_key(_core_plan(system, plan)) if plan.core_size else None)
+
+
+def _clone_sum(plan):
+    return dataclasses.replace(
+        plan, table=plan.table.clone(), signs={},
+        sign=None if plan.sign is None else plan.sign.clone(),
+        slots=None if plan.slots is None else plan.slots.clone())
+
+
+def _copy_sum(dst, src):
+    """``src``'s entries into ``dst``, a plan of the same sizes, and into
+    the signs ``dst`` keeps by dtype."""
+    dst.table.copy_(src.table)
+    if dst.sign is not None:
+        dst.sign.copy_(src.sign)
+        for sign in dst.signs.values():
+            sign.copy_(src.sign)
+    if dst.slots is not None:
+        dst.slots.copy_(src.slots)
+
+
+class _Solve:
+    """A cached solve, the counterpart of one executable in the JAX
+    jit's cache: every tensor its steps read or write, the steps, which
+    read nothing else, and the loop that keeps their graphs.  ``load``
+    copies a call's system in; ``run`` solves from an initial guess."""
+
+    def __init__(self, key, system: FlowSystem, plan, T, dtype, max_iter,
+                 tol, linear_solver, k, adm, fixed):
+        dev = system.device
+        M, E = system.num_unknown_pressures, system.num_edges
+        self.key, self.T, self.M, self.E = key, T, M, E
+        self.dtype, self.max_iter, self.tol = dtype, max_iter, tol
+        # the system the steps see: its index tensors and plans copied,
+        # the fields no step reads empty
+        self.sys = dataclasses.replace(
+            system, plans={},
+            **{f: getattr(system, f).clone() for f in _GRAPH_FIELDS},
+            **{f: getattr(system, f).new_empty(0) for f in _UNREAD_FIELDS})
+        owners = (self.sys.head, self.sys.tail, self.sys.node_unknown_index)
+        self.kinds = ("net",) + _SUM_KINDS[linear_solver]
+        for kind in self.kinds:
+            self.sys.plans[(kind, str(dev))] = (
+                owners, _clone_sum(edge_plan(system, kind)))
+        self.plan = None
+        if plan is not None:
+            self.plan = dataclasses.replace(
+                plan, **{f: getattr(plan, f).clone() for f in _PLAN_FIELDS})
+            if plan.core_size:
+                self.plan.plans[("core", str(dev))] = (
+                    owners, _clone_sum(_core_plan(system, plan)))
+        self.net = edge_plan(self.sys, "net")   # inflow - outflow
+        # edge fields as [T, Ep]; pad edges join node 0 to itself with
+        # zero admittance, and the node sums read the first E edges only
+        Ep = k.shape[1]
+        self.head, self.tail = (torch.zeros(Ep, dtype=torch.int64,
+                                            device=dev) for _ in range(2))
+        self.k, self.adm, self.inv_k = (torch.zeros_like(k),
+                                        torch.zeros_like(adm),
+                                        torch.zeros_like(k))
+        self.fixed = torch.zeros_like(fixed)
+        # the line search's candidate steps, alpha = 2^-j, j = 0..20 (the
+        # last is where the sequential search ends when nothing improves)
+        self.alphas = torch.tensor([0.5 ** j for j in range(_LS_STEPS + 1)],
+                                   dtype=dtype, device=dev)
+        self.rows = torch.arange(T, device=dev)
+        # the state one step hands to the next, written in place:
+        # pressures (and their low part in the refinement), residual
+        # norm, iterations, stalled rows, the residual norm before the
+        # step and stop (-1 while a row is active); CG's steps per row
+        self.p, self.p_lo = (torch.zeros(T, M, dtype=dtype, device=dev)
+                             for _ in range(2))
+        self.rn, self.rn0 = (torch.zeros(T, dtype=dtype, device=dev)
+                             for _ in range(2))
+        self.it = torch.zeros(T, dtype=torch.int32, device=dev)
+        self.stalled = torch.zeros(T, dtype=torch.bool, device=dev)
+        self.stop = torch.zeros((), dtype=torch.int32, device=dev)
+        self.cg_steps = torch.zeros(T, dtype=torch.int32, device=dev)
+        self.cg = (_CG(self.sys, T, dtype) if linear_solver == "cg"
+                   else None)
+        self.solves = 0             # linear solves run in the call
+        self.done = None            # the last call's end, on a card
+        # each step once: with CG a head and a tail (CG's blocks between)
+        self.steps = {}
+        for name, head, tail in (
+                ("newton", self.newton_head, self.newton_tail),
+                ("refine", self.refine_head, self.refine_tail)):
+            if self.cg is None:
+                self.steps[name] = self._linear_step(head, tail)
+            else:
+                self.steps[name + " head"] = functools.partial(
+                    self._cg_head, head)
+                self.steps[name + " tail"] = functools.partial(
+                    self._cg_tail, tail)
+        self.loop = grow_loop.loop_for(
+            dev, [(self, "solves")],
+            lambda: _cached_plans(self.sys, self.plan), keep=True)
+
+    def load(self, system: FlowSystem, plan, k, adm, fixed):
+        """Copy a call's system (of this entry's key) in, before any step
+        of the call runs."""
+        if self.done is not None:       # the last call's reads, on a card
+            torch.cuda.current_stream(self.p.device).wait_event(self.done)
+        for f in _GRAPH_FIELDS:
+            getattr(self.sys, f).copy_(getattr(system, f))
+        dev = str(self.p.device)
+        for kind in self.kinds:
+            _copy_sum(self.sys.plans[(kind, dev)][1], edge_plan(system, kind))
+        if self.plan is not None:
+            for f in _PLAN_FIELDS:
+                getattr(self.plan, f).copy_(getattr(plan, f))
+            for mine, theirs in zip(self.plan.rounds, plan.rounds):
+                for a, b in zip(mine[:4], theirs[:4]):
+                    a.copy_(b)
+                for (_, _, a), (_, _, b) in zip(mine[4], theirs[4]):
+                    a.copy_(b)
+            if plan.core_size:
+                _copy_sum(self.plan.plans[("core", dev)][1],
+                          _core_plan(system, plan))
+        self.head[:self.E].copy_(system.head)
+        self.tail[:self.E].copy_(system.tail)
+        self.k.copy_(k)
+        self.adm.copy_(adm)
+        self.inv_k.copy_(1.0 / k)
+        self.fixed.copy_(fixed)
+        if self.cg is not None:
+            self.cg.load()
+        self.cg_steps.zero_()
+
+    def full(self, p, fixed):
+        pad = p.new_zeros(p.shape[:-1] + (1,))
+        return torch.where(self.sys.node_fixed, fixed, torch.cat(
+            [p, pad], dim=-1).index_select(-1, self.sys.node_unknown_index))
+
+    def full_lo(self, p_lo):
+        return self.full(p_lo, torch.zeros((), dtype=self.dtype,
+                                           device=p_lo.device))
+
+    def node_residual(self, p, fixed, adm, k):
+        """Net inflow at the unknown nodes of p [..., M], and the edges'
+        flows and secant weights."""
+        pf = self.full(p, fixed)
+        dp = pf.index_select(-1, self.head) - pf.index_select(-1, self.tail)
+        q, w = _signed_flow_and_weight(dp, adm, k)
+        return segment_sum(self.net, q), q, w
+
+    def ds_residual(self, p_hi, p_lo):
+        """Residual with the pressure drop formed error-free."""
+        head, tail, inv_k = self.head, self.tail, self.inv_k
+        pf_hi = self.full(p_hi, self.fixed)
+        pf_lo = self.full_lo(p_lo)
+        s, e = _two_sum(pf_hi[:, head], -pf_hi[:, tail])
+        e = e + (pf_lo[:, head] - pf_lo[:, tail])
+        mag = torch.clamp(torch.abs(s), min=_DP_EPS)
+        w = self.adm ** inv_k * mag ** (inv_k - 1.0)
+        q_hi = w * s
+        q_lo = (w * inv_k) * e   # first order: dq/d(dp) = w/k
+        return (segment_sum(self.net, q_hi)
+                + segment_sum(self.net, q_lo)), w
+
+    def newton_active(self):
+        return (self.rn > self.tol) & (self.it < self.max_iter) & ~self.stalled
+
+    def set_stop(self):
+        self.stop.copy_(torch.where(self.newton_active().any(), -1, 0))
+
+    def newton_head(self):
+        self.solves += 1
+        r, _, w = self.node_residual(self.p, self.fixed, self.adm, self.k)
+        self.rn0.copy_(r.abs().amax(dim=-1))
+        # r = inflow - outflow, so dr/dp = -Laplacian(w); the update
+        # direction solves Laplacian(w) step = +r.
+        return w, r
+
+    def newton_tail(self, step):
+        p, rn, stalled, rows = self.p, self.rn, self.stalled, self.rows
+        active = self.newton_active()
+        cand = p[:, None, :] + self.alphas[None, :, None] * step[:, None, :]
+        rn_c = self.node_residual(cand, self.fixed[:, None],
+                                  self.adm[:, None],
+                                  self.k[:, None])[0].abs().amax(dim=-1)
+        good = rn_c[:, :_LS_STEPS] < self.rn0[:, None]
+        improved = good.any(dim=1)
+        first = torch.where(improved, good.to(torch.uint8).argmax(dim=1),
+                            _LS_STEPS)
+        rn_new = rn_c[rows, first]
+        # stalled: the line search found no improving step (numerical
+        # floor reached) — stop instead of burning iterations
+        stalled_new = ~improved | (rn_new >= self.rn0 * (1.0 - 1e-6))
+        torch.where(active[:, None], cand[rows, first], p, out=p)
+        torch.where(active, rn_new, rn, out=rn)
+        torch.where(active, stalled_new, stalled, out=stalled)
+        self.it.add_(active)
+        self.set_stop()
+
+    def refine_head(self):
+        self.solves += 1
+        r, w = self.ds_residual(self.p, self.p_lo)
+        # tangent weight dq/d(dp) = w/k: at the converged point no
+        # k-th-root modes are active, so these steps contract
+        # quadratically instead of at the secant ~(1-1/k) rate
+        return w * self.inv_k, r
+
+    def refine_tail(self, step):
+        hi, err = _two_sum(self.p, step)
+        lo = self.p_lo + err
+        hi, lo = _two_sum(hi, lo)       # renormalize the pair
+        self.p.copy_(hi)
+        self.p_lo.copy_(lo)
+
+    def _linear_step(self, head, tail):
+        """A step with a direct linear solve: ``head()`` -> (w, rhs), the
+        solve (a batch's LU between two graphs), ``tail(x)``."""
+        split = self.T > 1
+
+        def step():
+            w, rhs = head()
+            if self.plan is not None:
+                x = yield from laplacian_tree_steps(self.sys, self.plan, w,
+                                                    rhs, split)
+            else:
+                x = yield from _dense_laplacian_steps(self.sys, w, rhs,
+                                                      split)
+            tail(x)
+        return step
+
+    def _cg_head(self, head):
+        self.cg.begin(*head())
+
+    def _cg_tail(self, tail):
+        tail(self.cg.result(self.cg_steps))
+
+    def iterate(self, name):
+        """One step with a linear solve; with CG its head, CG's blocks
+        and its tail."""
+        if self.cg is None:
+            self.loop.run(name, self.steps[name])
+        else:
+            self.loop.run(name + " head", self.steps[name + " head"])
+            self.cg.run(self.loop)
+            self.loop.run(name + " tail", self.steps[name + " tail"])
+
+    def solve_from(self, p0):
+        """Newton with a backtracking line search on the residual norm,
+        every row on its own, from p0 -> the state above."""
+        self.p.copy_(p0)
+        self.rn.copy_(self.node_residual(self.p, self.fixed, self.adm,
+                                         self.k)[0].abs().amax(dim=-1))
+        self.it.zero_()
+        self.stalled.zero_()
+        self.set_stop()
+        while self.loop.read(self.stop) < 0:
+            self.iterate("newton")
+
+    def run(self, p_init, restarts, refine_steps):
+        """The solve from ``p_init``, its restarts and its refinement
+        steps, in the loop; the loop's counts are the call's."""
+        p, rn, it, loop = self.p, self.rn, self.it, self.loop
+        loop.reset_counts()
+        self.solves = 0
+        p.copy_(p_init)
+        self.p_lo.zero_()
+        rn.zero_()
+        it.zero_()
+        self.stalled.zero_()
+        with loop.stream():
+            if self.M > 0:
+                self.solve_from(p_init)
+
+            if restarts and self.M > 0:
+                # Multi-start escape — the robustness slot the reference
+                # fills with scipy basinhopping (fluidSimulation.py:
+                # 1746-1752, 1876-1878).  The trigger sits above the
+                # dtype's normal stall floor, so a healthy solve never
+                # pays a restart.
+                trigger = max(self.tol, 1e-8 if self.dtype == torch.float32
+                              else 1e-12)
+                gen = torch.Generator(device=p.device)
+                gen.manual_seed(int(restarts))
+                best_p, best_rn, best_it = p.clone(), rn.clone(), it.clone()
+                for _ in range(restarts):
+                    stuck = best_rn > trigger
+                    if not loop.read(stuck.any().to(torch.int32)):
+                        continue
+                    scale = torch.rand(p_init.shape, generator=gen,
+                                       dtype=self.dtype,
+                                       device=p.device) + 0.5
+                    self.solve_from(p_init * scale)
+                    better = stuck & (rn < best_rn)
+                    best_p = torch.where(better[:, None], p, best_p)
+                    best_rn = torch.where(better, rn, best_rn)
+                    best_it = best_it + torch.where(stuck, it, 0)
+                p.copy_(best_p)
+                rn.copy_(best_rn)
+                it.copy_(best_it)
+
+            for _ in range(refine_steps):
+                self.iterate("refine")
+            loop.capture_pending()
+
+
+def _entry(system: FlowSystem, plan, T, dtype, max_iter, tol, linear_solver,
+           refine_steps, restarts, k, adm, fixed, stats):
+    """The cached solve of this call's key, made on a miss.  The key is
+    what the JAX jit keys on: every shape and dtype of the entry's
+    tensors, the plans' sizes, the elimination plan's structure and the
+    static options, ``tol`` and ``max_iter`` too, as the captured
+    kernels take them as numbers; and the loop route
+    (``grow_loop.loop_for``, held in the key)."""
+    kinds = ("net",) + _SUM_KINDS[linear_solver]
+    key = (grow_loop.loop_for, T, system.num_nodes,
+           system.num_unknown_pressures, system.num_edges, k.shape[1],
+           tuple(getattr(system, f).dtype for f in _VALUE_FIELDS),
+           linear_solver, max_iter, tol, refine_steps, restarts,
+           tuple(_sum_key(edge_plan(system, kind)) for kind in kinds),
+           None if plan is None else _plan_key(system, plan))
+    entries = _entries(system.device)
+    entry = entries.get(key)
+    hit = entry is not None
+    if hit:
+        entries.move_to_end(key)
+    else:
+        entry = entries[key] = _Solve(key, system, plan, T, dtype, max_iter,
+                                      tol, linear_solver, k, adm, fixed)
+        while len(entries) > _CACHE_SIZE:
+            _drop(entries, next(iter(entries)))
+            _cache_counts["evictions"] += 1
+    _cache_counts["hits" if hit else "misses"] += 1
+    if stats is not None:
+        stats.hits += hit
+        stats.misses += not hit
+    return entry
+
+
 def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
             refine_steps, restarts, stats) -> FlowSolution:
     fp = system.node_fixed_pressure
@@ -371,7 +814,6 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
     Ep = -(-(E + 1) // _EDGE_ALIGN) * _EDGE_ALIGN
     fixed_mask = system.node_fixed
     slot = system.node_unknown_index
-    net_plan = edge_plan(system, "net")   # inflow - outflow per unknown
 
     # edge fields as [T, Ep]; pad edges join node 0 to itself with zero
     # admittance, and the node sums read the first E edges only
@@ -379,10 +821,6 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
         x = x.expand(T, E) if x.dim() == 1 else x
         return torch.cat([x, x.new_full((T, Ep - E), value)], dim=1)
 
-    def index(ix, value):
-        return torch.cat([ix, ix.new_full((Ep - E,), value)])
-
-    head, tail = index(system.head, 0), index(system.tail, 0)
     radius = edges(system.radius_m, 1.0)
     k = edges(system.k, 1.0)
     adm = edge_admittance(radius, edges(system.length_m, 1.0),
@@ -422,204 +860,55 @@ def _newton(system: FlowSystem, p_init, max_iter, tol, linear_solver, plan,
             linear_solver = "tree"
         else:
             linear_solver = "dense" if M <= 4096 else "cg"
-    # a batch's LU runs between the graphs of a step (lu_steps)
-    split = T > 1
-    cg = None
     if linear_solver == "tree":
         if plan is None:
             raise ValueError("linear_solver='tree' needs an EliminationPlan "
                              "(flow.tree_solver.plan_elimination)")
-
-        def solve(w, rhs):
-            return laplacian_tree_steps(system, plan, w, rhs, split)
-    elif linear_solver == "dense":
-        def solve(w, rhs):
-            return _dense_laplacian_steps(system, w, rhs, split)
-    elif linear_solver == "cg":
-        cg = _CG(system, T, dtype)
-    else:
+    elif linear_solver not in ("dense", "cg"):
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
-
-    def full(p, fixed):
-        pad = p.new_zeros(p.shape[:-1] + (1,))
-        return torch.where(fixed_mask, fixed, torch.cat(
-            [p, pad], dim=-1).index_select(-1, slot))
-
-    def node_residual(p, fixed=fixed, adm=adm, k=k):
-        """Net inflow at the unknown nodes of p [..., M], and the edges'
-        flows and secant weights."""
-        pf = full(p, fixed)
-        dp = pf.index_select(-1, head) - pf.index_select(-1, tail)
-        q, w = _signed_flow_and_weight(dp, adm, k)
-        return segment_sum(net_plan, q), q, w
-
-    # the line search's candidate steps, alpha = 2^-j, j = 0..20 (the last
-    # is where the sequential search ends when nothing improves)
-    alphas = torch.tensor([0.5 ** j for j in range(_LS_STEPS + 1)],
-                          dtype=dtype, device=device)
-    rows = torch.arange(T, device=device)
+    else:
+        plan = None
 
     if refine_steps is None:
         refine_steps = 2 if dtype == torch.float32 else 0
     refine = bool(refine_steps) and M > 0
-    inv_k = 1.0 / k
 
-    def full_lo(p_lo):
-        return full(p_lo, torch.zeros((), dtype=dtype, device=device))
+    entry = _entry(system, plan, T, dtype, max_iter, tol, linear_solver,
+                      refine_steps, restarts, k, adm, fixed, stats)
+    try:
+        entry.load(system, plan, k, adm, fixed)
+        entry.run(p_init, restarts, refine_steps if refine else 0)
+    except BaseException:
+        # a failed capture, replay or copy-in raises; the entry goes
+        try:
+            _drop(_entries(device), entry.key)
+        except RuntimeError:            # the error above is the one
+            pass                        # to report
+        raise
 
-    def ds_residual(p_hi, p_lo):
-        """Residual with the pressure drop formed error-free."""
-        pf_hi = full(p_hi, fixed)
-        pf_lo = full_lo(p_lo)
-        s, e = _two_sum(pf_hi[:, head], -pf_hi[:, tail])
-        e = e + (pf_lo[:, head] - pf_lo[:, tail])
-        mag = torch.clamp(torch.abs(s), min=_DP_EPS)
-        w = adm ** inv_k * mag ** (inv_k - 1.0)
-        q_hi = w * s
-        q_lo = (w * inv_k) * e   # first order: dq/d(dp) = w/k
-        return (segment_sum(net_plan, q_hi)
-                + segment_sum(net_plan, q_lo)), w
-
-    # the state one step hands to the next, written in place: pressures
-    # (and their low part in the refinement), residual norm, iterations,
-    # stalled rows, the residual norm before the step and stop (-1 while
-    # a row is active)
-    p = p_init.clone()
-    p_lo = torch.zeros_like(p)
-    rn, rn0 = (torch.zeros(T, dtype=dtype, device=device) for _ in range(2))
-    it = torch.zeros(T, dtype=torch.int32, device=device)
-    stalled = torch.zeros(T, dtype=torch.bool, device=device)
-    stop = torch.zeros((), dtype=torch.int32, device=device)
-    cg_steps = (None if cg is None or stats is None
-                else torch.zeros(T, dtype=torch.int32, device=device))
-    solves0 = 0 if stats is None else stats.linear_solves
-
-    def count_solve():
-        if stats is not None:
-            stats.linear_solves += 1
-
-    def newton_active():
-        return (rn > tol) & (it < max_iter) & ~stalled
-
-    def set_stop():
-        stop.copy_(torch.where(newton_active().any(), -1, 0))
-
-    def newton_head():
-        count_solve()
-        r, _, w = node_residual(p)
-        rn0.copy_(r.abs().amax(dim=-1))
-        # r = inflow - outflow, so dr/dp = -Laplacian(w); the update
-        # direction solves Laplacian(w) step = +r.
-        return w, r
-
-    def newton_tail(step):
-        active = newton_active()
-        cand = p[:, None, :] + alphas[None, :, None] * step[:, None, :]
-        rn_c = node_residual(cand, fixed[:, None], adm[:, None],
-                             k[:, None])[0].abs().amax(dim=-1)
-        good = rn_c[:, :_LS_STEPS] < rn0[:, None]
-        improved = good.any(dim=1)
-        first = torch.where(improved, good.to(torch.uint8).argmax(dim=1),
-                            _LS_STEPS)
-        rn_new = rn_c[rows, first]
-        # stalled: the line search found no improving step (numerical
-        # floor reached) — stop instead of burning iterations
-        stalled_new = ~improved | (rn_new >= rn0 * (1.0 - 1e-6))
-        torch.where(active[:, None], cand[rows, first], p, out=p)
-        torch.where(active, rn_new, rn, out=rn)
-        torch.where(active, stalled_new, stalled, out=stalled)
-        it.add_(active)
-        set_stop()
-
-    def refine_head():
-        count_solve()
-        r, w = ds_residual(p, p_lo)
-        # tangent weight dq/d(dp) = w/k: at the converged point no
-        # k-th-root modes are active, so these steps contract
-        # quadratically instead of at the secant ~(1-1/k) rate
-        return w * inv_k, r
-
-    def refine_tail(step):
-        hi, err = _two_sum(p, step)
-        lo = p_lo + err
-        hi, lo = _two_sum(hi, lo)       # renormalize the pair
-        p.copy_(hi)
-        p_lo.copy_(lo)
-
-    def iterate(name, head, tail):
-        """One step with a linear solve: ``head()`` -> (w, rhs), then
-        ``tail(x)``.  With CG three graphs, and CG's blocks between."""
-        if cg is None:
-            def step():
-                tail((yield from solve(*head())))
-            loop.run(name, step)
-        else:
-            loop.run(name + " head", lambda: cg.begin(*head()))
-            cg.run(loop)
-            loop.run(name + " tail", lambda: tail(cg.result(cg_steps)))
-
-    def solve_from(p0):
-        """Newton with a backtracking line search on the residual norm,
-        every row on its own, from p0 -> the state above."""
-        p.copy_(p0)
-        rn.copy_(node_residual(p)[0].abs().amax(dim=-1))
-        it.zero_()
-        stalled.zero_()
-        set_stop()
-        while loop.read(stop) < 0:
-            iterate("newton", newton_head, newton_tail)
-
-    loop = grow_loop.loop_for(
-        device, [] if stats is None else [(stats, "linear_solves")],
-        lambda: _cached_plans(system, plan))
-    with loop.stream():
-        if M > 0:
-            solve_from(p_init)
-
-        if restarts and M > 0:
-            # Multi-start escape — the robustness slot the reference
-            # fills with scipy basinhopping (fluidSimulation.py:1746-1752,
-            # 1876-1878).  The trigger sits above the dtype's normal stall
-            # floor, so a healthy solve never pays a restart.
-            trigger = max(tol, 1e-8 if dtype == torch.float32 else 1e-12)
-            gen = torch.Generator(device=device)
-            gen.manual_seed(int(restarts))
-            best_p, best_rn, best_it = p.clone(), rn.clone(), it.clone()
-            for _ in range(restarts):
-                stuck = best_rn > trigger
-                if not loop.read(stuck.any().to(torch.int32)):
-                    continue
-                scale = torch.rand(p_init.shape, generator=gen, dtype=dtype,
-                                   device=device) + 0.5
-                solve_from(p_init * scale)
-                better = stuck & (rn < best_rn)
-                best_p = torch.where(better[:, None], p, best_p)
-                best_rn = torch.where(better, rn, best_rn)
-                best_it = best_it + torch.where(stuck, it, 0)
-            p.copy_(best_p)
-            rn.copy_(best_rn)
-            it.copy_(best_it)
-
-        if refine:
-            for _ in range(refine_steps):
-                iterate("refine", refine_head, refine_tail)
-
+    # the results are new tensors: a later solve writes the entry again
     if stats is not None:
-        _add_loop_counts(stats, loop)
-        if cg_steps is not None and stats.linear_solves > solves0:
-            stats.cg_steps = (cg_steps if stats.cg_steps is None
-                              else stats.cg_steps + cg_steps)
-    if refine:
-        rn = ds_residual(p, p_lo)[0].abs().amax(dim=1)
-
-    p_full = full(p, fixed)
+        _add_loop_counts(stats, entry.loop)
+        stats.linear_solves += entry.solves
+        if entry.cg is not None and entry.solves:
+            stats.cg_steps = (entry.cg_steps.clone()
+                              if stats.cg_steps is None
+                              else stats.cg_steps + entry.cg_steps)
+    p, p_lo, head, tail = entry.p, entry.p_lo, entry.head, entry.tail
+    rn = (entry.ds_residual(p, p_lo)[0].abs().amax(dim=1) if refine
+          else entry.rn.clone())
+    p_full = entry.full(p, entry.fixed)
     dp = p_full[:, head] - p_full[:, tail]
     if refine:
-        pf_lo = full_lo(p_lo)
+        pf_lo = entry.full_lo(p_lo)
         s, e = _two_sum(p_full[:, head], -p_full[:, tail])
         dp = s + (e + (pf_lo[:, head] - pf_lo[:, tail]))
-    q, _ = _signed_flow_and_weight(dp, adm, k)
+    q, _ = _signed_flow_and_weight(dp, entry.adm, entry.k)
     v = velocity_from_flow(q, radius)
+    it = entry.it.clone()
+    if device.type == "cuda":
+        entry.done = torch.cuda.Event()
+        entry.done.record()
     return FlowSolution(pressure=p_full + p_ref[:, None], flow=q[:, :E],
                         velocity=v[:, :E], residual_norm=rn, iterations=it)
 

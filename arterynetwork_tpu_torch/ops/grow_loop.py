@@ -56,12 +56,38 @@ loop.stream():``.
   between the replays of the graphs before and after it (an LU that
   capture refuses).
 
-Graphs are captured anew on every call and dropped at its end, after the
-side stream has finished, so no pointer outlives the buffers of the
-call.  A capture that fails raises: nothing carries on eagerly.  Capture
-runs nothing, so a cache entry that a step made while it was captured
-would hold memory that no kernel has written; a loop given ``watch``
-raises if the objects ``watch()`` lists changed during a capture.
+A loop's graphs are dropped at the end of its call, after the side
+stream has finished, so no pointer outlives the buffers of the call;
+except a loop made with ``keep=True`` (the flow solver's cached solves,
+flow/solvers.py): it keeps its graphs, and the steps that ran once, from
+call to call, until ``close()``.  Such a loop captures, at the end of a
+call (``capture_pending``), each step that ran once and so was never
+captured, without running it, so that a later call replays every step
+the first call reached.  A capture that fails raises: nothing carries
+on eagerly.  Capture runs nothing, so a cache entry that a step made
+while it was captured would hold memory that no kernel has written; a
+loop given ``watch`` raises if the objects ``watch()`` lists changed
+during a capture.
+
+Every capture goes into one ``torch.cuda.MemPool`` per (device, thread),
+which lives for the process (``graph_pool``): the pool keeps its blocks
+when the graphs that used them are gone, and the next capture reuses
+them, where a pool per loop stayed reserved after its call.  The loops
+of a thread on a device share one side stream too, as the caching
+allocator gives a freed block to its own stream only.  Per thread,
+because captures run in ``thread_local`` mode and may run in two
+threads at once.  Graphs that share a pool may alias in the memory a
+capture allocated and freed again (a step's temporaries), so no two of
+them may run at once; and no step hands another a tensor allocated
+during a capture, except from one segment of a step to the next (a
+batch's LU): every state a loop keeps lies in buffers made before the
+loop.  Then graphs of one pool may replay in any order.  In one thread
+these loops can be live together: the cached solves' loops (idle
+between their calls) and one loop that runs, whose calls do not nest
+(no step starts a loop).  A loop runs on the side stream, which waits
+for the caller's stream when its call starts, and the caller waits for
+the side stream, after a synchronise, when it ends; so a later loop's
+graphs start after an earlier one's have finished.
 
 The kernels' wrappers count their launches in Python, which runs once,
 while a step is captured, and so may a caller's own counters.  A capture
@@ -84,11 +110,49 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import threading
 import time
 
 import torch
 
 from . import graph_while
+
+
+_pools = threading.local()
+
+
+class _GraphPool:
+    """One thread's graph pool on one device: a ``torch.cuda.MemPool``,
+    which holds the pool's blocks in the device allocator, the last
+    graph captured into it, and the side stream every loop of the
+    thread runs on there.  torch's pinned-host allocator counts a pool's
+    live graphs on its own, and refuses a capture into a pool whose
+    count fell to 0 (torch 2.11: "use_count > 0 INTERNAL ASSERT
+    FAILED"); the kept graph holds that count at 1 or more.  The caching
+    allocator gives a freed block only to its own stream again, so with
+    one side stream each call reuses the blocks of the last, captured
+    and eager."""
+
+    def __init__(self, device):
+        with torch.cuda.device(device):
+            self.mempool = torch.cuda.MemPool()
+        self.id = self.mempool.id
+        self.last = None
+        self.side = torch.cuda.Stream(device)
+
+
+def graph_pool(device):
+    """This thread's graph pool on ``device`` (a torch.device), made at
+    its first use and kept for the process: ``.id`` for
+    ``capture_begin(pool=...)``, ``.last`` the last graph captured,
+    ``.side`` the loops' side stream."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    pools = _pools.__dict__.setdefault("by_device", {})
+    pool = pools.get(device)
+    if pool is None:
+        pool = pools[device] = _GraphPool(device)
+    return pool
 
 
 def _read(stop, pinned=None):
@@ -169,6 +233,9 @@ class HostLoop:
     """A loop's steps run eagerly (CPU tensors)."""
 
     def __init__(self):
+        self.reset_counts()
+
+    def reset_counts(self):
         self.reads = self.captures = self.replays = 0
         self.capture_s = 0.0
         self.runs = {}         # key -> steps run
@@ -185,6 +252,12 @@ class HostLoop:
         self.runs[key] = self.runs.get(key, 0) + 1
         _eager(step)
 
+    def capture_pending(self):
+        pass
+
+    def close(self):
+        pass
+
 
 class GraphLoop(HostLoop):
     """A loop's steps on a CUDA device: each key's first step eager, its
@@ -194,18 +267,19 @@ class GraphLoop(HostLoop):
     ``counters``: (object, attribute) pairs of the caller's Python
     counters, kept as the kernels' launch counters are; ``watch``: a
     function -> a list of objects (a cache's entries), which must be the
-    same objects after a capture as before."""
+    same objects after a capture as before; ``keep``: the graphs stay
+    from call to call (the module's docstring)."""
 
-    def __init__(self, device, counters=(), watch=None):
+    def __init__(self, device, counters=(), watch=None, keep=False):
         super().__init__()
         self.device = device
-        self.side = torch.cuda.Stream(device)
+        self.side = graph_pool(device).side
         self.pinned = torch.empty(1, dtype=torch.int32, pin_memory=True)
         self.counters = list(counters)
         self.watch = watch
-        self.pool = None
+        self.keep = keep
         self.graphs = {}       # key -> [(graph, counts, split or None)]
-        self.seen = set()
+        self.seen = {}         # key -> its step, once it ran eagerly
 
     @contextlib.contextmanager
     def stream(self):
@@ -215,9 +289,16 @@ class GraphLoop(HostLoop):
             with torch.cuda.device(self.device), torch.cuda.stream(self.side):
                 yield self
         finally:
-            self.side.synchronize()      # before the graphs and pool go
+            self.side.synchronize()      # before the graphs go
             caller.wait_stream(self.side)
-            self.graphs.clear()
+            if not self.keep:
+                self.graphs.clear()
+
+    def close(self):
+        """Drop the graphs, once the side stream has finished."""
+        self.side.synchronize()
+        self.graphs.clear()
+        self.seen.clear()
 
     def read(self, stop):
         self.reads += 1
@@ -228,8 +309,6 @@ class GraphLoop(HostLoop):
         added to each counter); the counters are left as they were.
         ``keep_graph``: the graph is kept uninstantiated, for its
         ``raw_cuda_graph()`` (never ``replay()`` it)."""
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
         counters = self.counters + [(w, "launches") for w in _counted()]
         before = [getattr(o, a) for o, a in counters]
         watched = None if self.watch is None else self.watch()
@@ -238,7 +317,8 @@ class GraphLoop(HostLoop):
                  else torch.cuda.CUDAGraph())
         # thread_local: another thread of the caller may use the card
         # meanwhile; this thread's unsafe calls still raise
-        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        pool = graph_pool(self.device)
+        graph.capture_begin(pool=pool.id, capture_error_mode="thread_local")
         try:
             step()
         except BaseException:
@@ -248,6 +328,7 @@ class GraphLoop(HostLoop):
                 pass
             raise
         graph.capture_end()
+        pool.last = graph
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
         added = [getattr(o, a) - b for (o, a), b in zip(counters, before)]
@@ -274,13 +355,21 @@ class GraphLoop(HostLoop):
         elif key in self.seen:
             self.graphs[key] = self._capture_parts(step)
         else:
-            self.seen.add(key)
+            self.seen[key] = step
             _eager(step)
 
-    def _capture_parts(self, step):
+    def capture_pending(self):
+        """Capture, without running them, the steps that ran once and
+        were never captured (inside ``stream()``)."""
+        for key, step in self.seen.items():
+            if key not in self.graphs:
+                self.graphs[key] = self._capture_parts(step, run=False)
+
+    def _capture_parts(self, step, run=True):
         """``step`` captured segment by segment, each segment replayed
         (and the callable it yields run) before the next is captured, as
-        the segments read what the ones before wrote."""
+        the segments read what the ones before wrote; with ``run=False``
+        captured only (what a segment allocates stays for the next)."""
         parts, state = [], {}
 
         def segment():
@@ -291,12 +380,14 @@ class GraphLoop(HostLoop):
 
         while True:
             graph, counts = self.capture(segment)
-            self.replay(graph, counts)
+            if run:
+                self.replay(graph, counts)
             split = state["split"]
             parts.append((graph, counts, split))
             if split is None:
                 return parts
-            split()
+            if run:
+                split()
 
 
 def graph_loop(steps, stop):
@@ -366,9 +457,9 @@ def drive(steps, stop):
     return host_loop(steps, stop)
 
 
-def loop_for(device, counters=(), watch=None):
+def loop_for(device, counters=(), watch=None, keep=False):
     """The loop a solve's steps run in on ``device`` (a torch.device):
     a ``GraphLoop`` on a CUDA device, else a ``HostLoop``."""
     if device.type == "cuda":
-        return GraphLoop(device, counters, watch)
+        return GraphLoop(device, counters, watch, keep)
     return HostLoop()

@@ -198,11 +198,15 @@ Phases, each printing its own lines:
                eager loops as there, the whole-volume
                vesselness's peak memory with its per-voxel passes in one
                slab and in slabs (bit-equal), whether the ground truth is
-               feasible.
+               feasible; the graph pool (ops/grow_loop.graph_pool):
+               memory reserved after each of five single-device and
+               five sharded thinnings of its mask, the fifth within 5%
+               of the second.
  Every flow solve from here on, and pipeline_512's and speck_pipeline's
  flow stage, runs driven by captured CUDA graphs (flow/solvers.py on
- ops/grow_loop.py): each must run in a graph loop that replayed graphs
- if it ran a step more than once.
+ ops/grow_loop.py): each that ran a step more than once must have
+ replayed graphs, and each that found its key in the cache of solves
+ must have captured none and replayed every step.
  11. flow_determinism — each solve run twice on the card gives the
                same bits: pipeline_512's f32 solve, the 16k tree's f32
                tree and CG solves, GBMTest5's T = 8 f64 batch (the flow
@@ -216,9 +220,17 @@ Phases, each printing its own lines:
                agree bit for bit with the same host reads, linear solves
                and CG steps; Newton iterations, CG steps per linear
                solve, host reads, graphs captured, replays and capture
-               seconds per solve, the idle share of a traced run (but CG
-               f64's), max relative pressure error against the ground
-               truth (<= 1e-6 f32, <= 1e-9 f64);
+               seconds of the cold solve (the cache emptied: a miss)
+               and of a warm one (a hit: none captured), the idle share
+               of a traced run (but CG f64's), max relative pressure
+               error against the ground truth (<= 1e-6 f32, <= 1e-9
+               f64);
+     solve_cache — A, then B, then A on the 16k tree (tree f32, CG f32
+               and f64) and the T = 8 batch, the cache emptied first; B
+               is A's tree with 5% of its radii shrunk and its boundary
+               pressures x 0.9: each solve bit-equal to eager_loop()'s,
+               B and the second A hits that capture nothing, A's first
+               result unchanged after; ms, captures, capture s, hits;
  12. longitudinal — GBMTest5 on the depth-13 tree, T = 8, f64, "auto"
                with the plan: the batched solve graph-driven and in the
                eager loop (bit-equal, the same host reads), against T
@@ -231,7 +243,10 @@ Phases, each printing its own lines:
                the solver drivers equal to the port on the CPU within
                1e-9, pickles written and read back; distribute's
                Gauss-Newton fit graph-driven (40 steps: 1 capture, 39
-               replays) and within 1e-9 of its eager loop on the card.
+               replays) and within 1e-9 of its eager loop on the card;
+               the four experiment drivers (flow/experiments.py) twice
+               on the card, the second call capturing no graph, and held
+               to the CPU within 1e-9 (GBMTest3: its errors).
  14. figures — the CLI's study gbm5 and gbm5b (depth 10, T = 4) and
                morpho with its 13 figures on graph_path_512's bundle, on
                the card: seconds and figure files with their sizes (each
@@ -804,6 +819,13 @@ def loop_counts():
             "capture_s": loop.graph_loop.capture_s}
 
 
+def _host_loop_for(*args, **kw):
+    """``grow_loop.loop_for`` inside ``eager_loop()``: a HostLoop on any
+    device (one function for every use, as the flow solves' cache keys
+    on it: their eager entries stay from one use to the next)."""
+    return _ops("grow_loop").HostLoop()
+
+
 @contextlib.contextmanager
 def eager_loop():
     """Run the growers' steps, the flow solver's, the device thinning's
@@ -813,7 +835,7 @@ def eager_loop():
     loop = _ops("grow_loop")
     drive, loop_for = loop.drive, loop.loop_for
     loop.drive = loop.host_loop
-    loop.loop_for = lambda *args, **kw: loop.HostLoop()
+    loop.loop_for = _host_loop_for
     try:
         yield
     finally:
@@ -894,38 +916,64 @@ def cc_graph_vs_eager(phase, label, mask, **kw):
         lambda c: (c["rounds"],), lambda c: c["rounds"])
 
 
+def _solvers():
+    return importlib.import_module("arterynetwork_tpu_torch.flow.solvers")
+
+
+def _add_stats(into, stats):
+    """Add one solve's SolveStats to another's."""
+    for f in ("host_reads", "linear_solves", "captures", "replays",
+              "capture_s", "hits", "misses"):
+        setattr(into, f, getattr(into, f) + getattr(stats, f))
+    for key, n in stats.runs.items():
+        into.runs[key] = into.runs.get(key, 0) + n
+    if stats.cg_steps is not None:
+        into.cg_steps = (stats.cg_steps.clone() if into.cg_steps is None
+                         else into.cg_steps + stats.cg_steps)
+
+
 @contextlib.contextmanager
 def solve_loops():
-    """Collect the loop objects the flow solves inside make
-    (``grow_loop.loop_for``): a list, filled as they run."""
-    loop = _ops("grow_loop")
-    loop_for, made = loop.loop_for, []
+    """Collect the counts of every flow solve inside, one SolveStats per
+    call of ``solvers._newton`` (a caller's own stats still get them): a
+    list, filled as they run."""
+    solvers = _solvers()
+    newton, made = solvers._newton, []
 
-    def tracked(*args, **kw):
-        made.append(loop_for(*args, **kw))
-        return made[-1]
+    def tracked(*args):
+        stats = solvers.SolveStats()
+        sol = newton(*args[:-1], stats)
+        made.append(stats)
+        if args[-1] is not None:
+            _add_stats(args[-1], stats)
+        return sol
 
-    loop.loop_for = tracked
+    solvers._newton = tracked
     try:
         yield made
     finally:
-        loop.loop_for = loop_for
+        solvers._newton = newton
 
 
-def _graph_solves(label, loops):
-    """Fail unless every flow solve of ``loops`` ran in a GraphLoop and
-    each that ran a step more than once (a second Newton, CG or
-    refinement step) replayed captured graphs -> their counts."""
-    g = _ops("grow_loop").GraphLoop
-    counts = {"solves": len(loops),
-              "captures": sum(lp.captures for lp in loops),
-              "replays": sum(lp.replays for lp in loops),
-              "capture_s": sum(lp.capture_s for lp in loops),
-              "reads": sum(lp.reads for lp in loops)}
-    bad = [lp for lp in loops if not isinstance(lp, g) or (
-        max(lp.runs.values(), default=0) > 1 and not lp.replays)]
-    if bad or not loops:
-        raise SystemExit(f"{label}: {len(bad)} of {len(loops)} solves not "
+def _graph_solves(label, solves):
+    """Fail unless every flow solve of ``solves`` (SolveStats) that ran a
+    step more than once (a second Newton, CG or refinement step)
+    replayed captured graphs, and every one that found its key in the
+    cache of solves captured nothing and replayed every step -> their
+    counts."""
+    counts = {"solves": len(solves),
+              "captures": sum(s.captures for s in solves),
+              "replays": sum(s.replays for s in solves),
+              "capture_s": sum(s.capture_s for s in solves),
+              "reads": sum(s.host_reads for s in solves),
+              "hits": sum(s.hits for s in solves),
+              "misses": sum(s.misses for s in solves),
+              "captures_by_solve": [s.captures for s in solves]}
+    bad = [s for s in solves if (
+        max(s.runs.values(), default=0) > 1 and not s.replays) or (
+        s.hits and (s.captures or s.replays < sum(s.runs.values())))]
+    if bad or not solves:
+        raise SystemExit(f"{label}: {len(bad)} of {len(solves)} solves not "
                          f"driven by captured graphs ({counts})")
     return counts
 
@@ -2617,6 +2665,54 @@ def _sharded_thin_vs_eager(phase, mask_sh, skel1):
     return rec
 
 
+POOL_CALLS = 5
+# peak reserved memory over five Speck thinnings when each call
+# captured into a pool of its own (thin_pair.py and sharded_pair.py, on
+# an H100 80GB HBM3 at 700 W)
+POOL_BEFORE_GB = {"single-device": 73.5, "sharded": 72.7}
+
+
+def _pool_check(phase, mask1, mask_sh):
+    """The graph pool kept per device and thread (ops/grow_loop.
+    graph_pool): after one ``torch.cuda.empty_cache()``, five
+    single-device thinnings (16 waves, thin_pair.py's thin_speck) and
+    five sharded ones of the phase's mask, with the memory reserved
+    after each call; the fifth call's within 5% of the second's, as
+    every capture after the first reuses the pool's blocks -> a
+    record."""
+    import torch
+
+    thinnings = {
+        "single-device": lambda: _ops("thinning").skeletonize(
+            mask1, max_waves=SHARDED_WAVES),
+        "sharded": lambda: importlib.import_module(
+            "arterynetwork_tpu_torch.parallel.sharded").skeletonize(
+                mask_sh, max_waves=SHARDED_WAVES)}
+    torch.cuda.empty_cache()
+    rec = {}
+    for name, fn in thinnings.items():
+        torch.cuda.reset_peak_memory_stats()
+        reserved = []
+        t0 = time.perf_counter()
+        for _ in range(POOL_CALLS):
+            fn()
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved() / 1e9)
+        rec[name] = {"reserved_gb": reserved,
+                     "peak_reserved_gb": torch.cuda.max_memory_reserved()
+                     / 1e9, "s": time.perf_counter() - t0,
+                     "before_gb": POOL_BEFORE_GB[name]}
+        log(phase, f"graph pool, {POOL_CALLS} {name} thinnings: reserved "
+            f"after each {', '.join(f'{g:.3f}' for g in reserved)} GB, "
+            f"peak {rec[name]['peak_reserved_gb']:.3f} GB (with a pool per "
+            f"call: {POOL_BEFORE_GB[name]} GB peak after five), "
+            f"{rec[name]['s']:.1f} s")
+        if abs(reserved[-1] - reserved[1]) > 0.05 * reserved[1]:
+            raise SystemExit(f"{phase}: reserved memory over {name} "
+                             f"thinnings grew: {reserved} GB")
+    return rec
+
+
 def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     """mini_pipeline_sharded on ``raw`` (the pipeline_512 raw volume for
     sharded_512, the Speck one for speck_sharded) over a 2x2 mesh of
@@ -2803,10 +2899,12 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     grow_rec = _sharded_grow_vs_eager(phase, v_sh, seeds_sh)
     mask_sh = shard_volume(mask1, mesh)
     thin_rec = _sharded_thin_vs_eager(phase, mask_sh, skel1)
+    pool_rec = (_pool_check(phase, mask1, mask_sh)
+                if phase == "speck_sharded" else None)
     del v_sh, mask_sh
     alloc_per_sweep = (alloc[1][0] - alloc[0][0]) / max(
         alloc[1][1] - alloc[0][1], 1)
-    out = {"phase": phase, "mesh": "2x2 of cuda:0",
+    out = {"phase": phase, "mesh": "2x2 of cuda:0", "graph_pool": pool_rec,
            "median_s": statistics.median(totals), "runs_s": totals,
            "stage_medians_s": medians, "single_device_stages_s": single,
            "grow": rg, "sweeps": sweeps, "launches": counts,
@@ -3310,6 +3408,9 @@ STUDY_DEPTH = 10     # BraVa single-subject scale (~2k segments)
 LONG_T = 8           # longitudinal timesteps
 STUDY_DRIVERS = ("flow_split", "same_flow", "two_timepoint", "tp_fit",
                  "gbm4", "gbm5", "gbm5b", "distribute")   # the study CLI's
+# flow/experiments.py: computeNetworkTest, GBMTest3, GBMTest, GBMTest2
+EXPERIMENTS = ("compute_network_test", "solver_sanity",
+               "radius_perturbation", "pressure_perturbation")
 
 
 def _sync_s(fn):
@@ -3379,6 +3480,18 @@ def _graph_driven_solve(label, same, stats, e_stats, iterations):
             and steps[0] == steps[1] and (stats.replays > 0 or not more)):
         raise SystemExit(f"{label}: graph-driven and eager solves differ "
                          f"(bit-equal {same}; {stats}; eager {e_stats})")
+
+
+def _warm_solve(label, cold, warm):
+    """Fail unless ``cold`` (the first solve after the cache was emptied)
+    missed the cache of solves and captured, and ``warm`` (a later solve
+    of the same key) hit, captured nothing and replayed every step."""
+    if not (cold.misses == 1 and cold.hits == 0 and cold.captures > 0
+            and warm.hits == 1 and warm.misses == 0 and warm.captures == 0
+            and warm.replays >= sum(warm.runs.values()) > 0):
+        raise SystemExit(f"{label}: the cold solve {cold} and the warm one "
+                         f"{warm}: not a miss that captured, then a hit "
+                         f"that replayed every step")
 
 
 def phase_flow_determinism(net512):
@@ -3453,6 +3566,7 @@ def phase_flow_solvers():
     from arterynetwork_tpu_torch import flagship
     from arterynetwork_tpu_torch.flow import build_system
     from arterynetwork_tpu_torch.flow.solvers import (SolveStats,
+                                                      clear_solve_cache,
                                                       solve_pressure_newton)
     from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
 
@@ -3475,8 +3589,11 @@ def phase_flow_solvers():
             return solve_pressure_newton(system, max_iter=60, stats=stats,
                                          **kw)
 
+        clear_solve_cache()
+        cold = SolveStats()             # a miss: captures its graphs
+        _, cold_s = _sync_s(lambda: solve(cold))
         sol, ms = _median_ms(solve)
-        stats = SolveStats()            # counted untraced
+        stats = SolveStats()            # counted untraced, a hit
         solve(stats)
         # cg f64's ~100k kernels would take the tracer tens of seconds to
         # list
@@ -3493,26 +3610,33 @@ def phase_flow_solvers():
                       and torch.isfinite(sol.flow).all())
         cg = (None if stats.cg_steps is None
               else int(stats.cg_steps.sum()) / stats.linear_solves)
-        rec = {"ms": ms, "eager_loop_ms": eager_ms,
+        rec = {"ms": ms, "cold_ms": 1e3 * cold_s, "eager_loop_ms": eager_ms,
                "newton_iterations": sol.iterations,
                "linear_solves": stats.linear_solves,
                "cg_steps_per_linear_solve": cg,
                "host_reads": stats.host_reads,
                "eager_host_reads": e_stats.host_reads,
+               "cold_captures": cold.captures,
+               "cold_capture_s": cold.capture_s,
+               "cold_replays": cold.replays,
                "captures": stats.captures, "replays": stats.replays,
-               "capture_s": stats.capture_s, "bit_equal_to_eager": same,
+               "capture_s": stats.capture_s, "hit": stats.hits,
+               "bit_equal_to_eager": same,
                "max_rel_pressure_err": err, "limit": limit,
                "residual_norm": float(sol.residual_norm), "finite": finite,
                "traced_s": wall, "device_busy_s": busy, "device_idle": idle,
                "device_idle_untraced": (None if busy is None
                                         else 1 - busy / (ms / 1e3))}
         out["solves"][name] = rec
-        log("flow_solvers", f"{name}: {ms:.3f} ms per solve graph-driven "
-            f"(eager loop {eager_ms:.3f} ms), {sol.iterations} Newton "
+        log("flow_solvers", f"{name}: {ms:.3f} ms per warm solve "
+            f"graph-driven (cold {1e3 * cold_s:.3f} ms: graphs captured "
+            f"{cold.captures} in {cold.capture_s:.4f} s, replays "
+            f"{cold.replays}; eager loop {eager_ms:.3f} ms), "
+            f"{sol.iterations} Newton "
             f"iterations, {stats.linear_solves} linear solves, CG steps per "
             f"linear solve {cg}, {stats.host_reads} host reads (eager "
-            f"{e_stats.host_reads}), graphs captured {stats.captures} in "
-            f"{stats.capture_s:.4f} s, replays {stats.replays}; bit-equal to "
+            f"{e_stats.host_reads}), warm: graphs captured {stats.captures}, "
+            f"replays {stats.replays}, cache hit {stats.hits}; bit-equal to "
             f"the eager loop {same}; max rel pressure error {err:.3e} (limit "
             f"{limit}); " + (
                 "not traced" if wall is None else f"traced {wall:.4f} s, "
@@ -3523,6 +3647,7 @@ def phase_flow_solvers():
                              f"or non-finite")
         _graph_driven_solve(f"flow_solvers {name}", same, stats, e_stats,
                             sol.iterations)
+        _warm_solve(f"flow_solvers {name}", cold, stats)
     fwd, args = flagship.entry(device="cuda")
     (p, q), ms = _median_ms(lambda: fwd(*args))
     fsys, fgt = flagship.flagship_system(max_depth=9, device="cuda")
@@ -3537,6 +3662,131 @@ def phase_flow_solvers():
     if not (finite and err <= 1e-5):
         raise SystemExit(f"flagship entry: error {err} or non-finite")
     _no_launches("flow_solvers")
+    print(json.dumps(out), flush=True)
+    return out
+
+
+SOLVE_CACHE_SEED = 1        # B's radius perturbation
+SOLVE_CACHE_EDGES = 0.05    # the share of edges it shrinks by 30%
+
+
+def phase_solve_cache():
+    """The cache of flow solves (flow/solvers.py): a cold solve of A,
+    then B, then A again, after the cache was emptied, on the 16k tree
+    (tree f32, CG f32 and f64, as flow_solvers solves them) and on
+    longitudinal's T = 8 batch (f64, the tree route; the batch's system
+    and elimination plan are built anew in every call).  B is A's tree
+    with 5% of its edges shrunk by 30% (flow/perturb.perturb_radius_
+    random, seed 1) and its boundary pressures x 0.9, so the elimination
+    plan's structure is A's.  Gates: each solve bit-equal to the same
+    solve in ``eager_loop()``; A a miss that captured, B and A again
+    hits that captured nothing and replayed every step; A's first
+    result byte-equal after the third solve.  Printed: ms, captures and
+    capture s of each solve, a median of 3 warm solves of A, hits and
+    misses."""
+    import numpy as np
+    import torch
+
+    from arterynetwork_tpu_torch.flow import build_system, create_ground_truth
+    from arterynetwork_tpu_torch.flow.longitudinal import (
+        build_timestep_batch, solve_timestep_batch)
+    from arterynetwork_tpu_torch.flow.perturb import perturb_radius_random
+    from arterynetwork_tpu_torch.flow.solvers import (SolveStats,
+                                                      clear_solve_cache,
+                                                      solve_cache_info,
+                                                      solve_pressure_newton)
+    from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
+
+    reset_counts()
+
+    def perturbed(net):
+        return perturb_radius_random(
+            net, int(SOLVE_CACHE_EDGES * net.num_edges), 30.0,
+            rng=np.random.default_rng(SOLVE_CACHE_SEED))
+
+    net, gt = _bench_tree(FLOW_DEPTH)
+    systems = {}
+    for dt in (torch.float32, torch.float64):
+        for name, n, bp in (("A", net, gt.pressure),
+                            ("B", perturbed(net), 0.9 * gt.pressure)):
+            s = build_system(n, boundary_pressure=bp, dtype=dt,
+                             device="cuda")
+            systems[name, dt] = (s, plan_elimination(s))
+
+    def single(name, dt, **kw):
+        s, plan = systems[name, dt]
+        if kw.get("linear_solver") == "auto":
+            kw["plan"] = plan
+        return lambda stats=None: solve_pressure_newton(
+            s, max_iter=60, stats=stats, **kw)
+
+    lnet, parts, radius_end, rng = _study_net(FLOW_DEPTH)
+    lgt = create_ground_truth(lnet, option=2, rng=rng)
+    batch = {"A": build_timestep_batch(lnet, lgt.pressure, radius_end,
+                                       LONG_T, 1, partitions=parts)}
+    factor = perturbed(lnet).radius / lnet.radius
+    batch["B"] = dict(batch["A"],
+                      radius_m=batch["A"]["radius_m"] * factor[None],
+                      boundary_pressure=0.9 * batch["A"]["boundary_pressure"])
+
+    def batched(name):
+        return lambda stats=None: solve_timestep_batch(
+            lnet, batch[name], dtype=torch.float64, device="cuda",
+            stats=stats)
+
+    f32, f64 = torch.float32, torch.float64
+    cases = {
+        "tree_f32": {n: single(n, f32, tol=1e-9, linear_solver="auto")
+                     for n in "AB"},
+        "cg_f32": {n: single(n, f32, tol=1e-9, linear_solver="cg")
+                   for n in "AB"},
+        "cg_f64": {n: single(n, f64, linear_solver="cg") for n in "AB"},
+        f"batch_T{LONG_T}_f64": {n: batched(n) for n in "AB"},
+    }
+    out = {"phase": "solve_cache", "depth": FLOW_DEPTH, "T": LONG_T,
+           "edges": net.num_edges, "cases": {}}
+    for case, fns in cases.items():
+        with eager_loop():
+            eager = {n: _solve_bits(fn()) for n, fn in fns.items()}
+        clear_solve_cache()
+        info0 = solve_cache_info()
+        solves, first = [], None
+        for name in "ABA":
+            stats = SolveStats()
+            sol, secs = _sync_s(lambda: fns[name](stats))
+            bits = _solve_bits(sol)
+            if first is None:
+                first, first_bits = sol, bits
+            solves.append({"system": name, "ms": 1e3 * secs,
+                           "captures": stats.captures,
+                           "capture_s": stats.capture_s,
+                           "replays": stats.replays,
+                           "steps": sum(stats.runs.values()),
+                           "hits": stats.hits, "misses": stats.misses,
+                           "bit_equal_to_eager": bits == eager[name]})
+            if name == "A" and len(solves) == 1:
+                cold = stats
+            else:
+                _warm_solve(f"solve_cache {case} {name}", cold, stats)
+        _, warm_ms = _median_ms(fns["A"])
+        info = solve_cache_info()
+        rec = {"solves": solves, "warm_median_ms": warm_ms,
+               "first_unchanged": _solve_bits(first) == first_bits,
+               "hits": info["hits"] - info0["hits"],
+               "misses": info["misses"] - info0["misses"]}
+        out["cases"][case] = rec
+        log("solve_cache", f"{case}: " + "; ".join(
+            f"{r['system']} {r['ms']:.3f} ms, {r['captures']} captures in "
+            f"{r['capture_s']:.4f} s, {r['replays']} replays of "
+            f"{r['steps']} steps, hit {r['hits']}, bit-equal to the eager "
+            f"loop {r['bit_equal_to_eager']}" for r in solves)
+            + f"; warm A median {warm_ms:.3f} ms; A's first result "
+            f"unchanged {rec['first_unchanged']}; cache hits {rec['hits']},"
+            f" misses {rec['misses']}")
+        if not (all(r["bit_equal_to_eager"] for r in solves)
+                and rec["first_unchanged"]):
+            raise SystemExit(f"solve_cache {case}: {rec}")
+    _no_launches("solve_cache")
     print(json.dumps(out), flush=True)
     return out
 
@@ -3587,6 +3837,7 @@ def phase_longitudinal():
     from arterynetwork_tpu_torch.flow.longitudinal import (
         build_timestep_batch, solve_timestep_batch)
     from arterynetwork_tpu_torch.flow.solvers import (SolveStats,
+                                                      clear_solve_cache,
                                                       solve_pressure_newton)
     from arterynetwork_tpu_torch.flow.tree_solver import plan_elimination
 
@@ -3599,8 +3850,11 @@ def phase_longitudinal():
         return solve_timestep_batch(net, batch, dtype=torch.float64,
                                     device="cuda", stats=stats)
 
+    clear_solve_cache()
+    cold = SolveStats()                 # a miss: captures its graphs
+    _, cold_s = _sync_s(lambda: batched(cold))
     sol, batched_ms = _median_ms(batched)
-    stats = SolveStats()                # counted untraced
+    stats = SolveStats()                # counted untraced, a hit
     batched(stats)
     wall, busy, idle = device_idle(batched)
     with eager_loop():
@@ -3638,6 +3892,9 @@ def phase_longitudinal():
            "batched_host_reads": stats.host_reads,
            "batched_eager_loop_ms": eager_ms,
            "batched_eager_host_reads": e_stats.host_reads,
+           "batched_cold_ms": 1e3 * cold_s,
+           "batched_cold_captures": cold.captures,
+           "batched_cold_capture_s": cold.capture_s,
            "batched_captures": stats.captures,
            "batched_replays": stats.replays,
            "batched_capture_s": stats.capture_s,
@@ -3649,11 +3906,13 @@ def phase_longitudinal():
            "row0_vs_ground_truth": bool(gt_ok),
            "max_rel_row_diff": row_rel, "finite": finite}
     log("longitudinal", f"T={LONG_T} on {net.num_edges} edges: batch prep "
-        f"{prep_s:.3f} s (host); batched solve {batched_ms:.3f} ms "
-        f"graph-driven (eager loop {eager_ms:.3f} ms), {stats.host_reads} "
-        f"host reads (eager {e_stats.host_reads}), graphs captured "
-        f"{stats.captures} in {stats.capture_s:.4f} s, replays "
-        f"{stats.replays}, bit-equal to the eager loop {same}; traced "
+        f"{prep_s:.3f} s (host); batched solve {batched_ms:.3f} ms warm "
+        f"graph-driven (cold {1e3 * cold_s:.3f} ms, graphs captured "
+        f"{cold.captures} in {cold.capture_s:.4f} s; eager loop "
+        f"{eager_ms:.3f} ms), {stats.host_reads} "
+        f"host reads (eager {e_stats.host_reads}), warm: graphs captured "
+        f"{stats.captures}, replays {stats.replays}, cache hit "
+        f"{stats.hits}, bit-equal to the eager loop {same}; traced "
         f"{wall:.4f} s with the device busy {busy:.4f} s ({idle:.1%} idle; "
         f"{1 - busy / (batched_ms / 1e3):.1%} of the untraced median); "
         f"{LONG_T} unbatched solves "
@@ -3664,6 +3923,7 @@ def phase_longitudinal():
             and row_rel <= 1e-12):
         raise SystemExit("longitudinal: a gate failed")
     _graph_driven_solve("longitudinal", same, stats, e_stats, sol.iterations)
+    _warm_solve("longitudinal", cold, stats)
     _no_launches("longitudinal")
     print(json.dumps(out), flush=True)
     return out
@@ -3675,9 +3935,11 @@ def _drivers(net, parts, radius_end, rng, store, device, physics):
     fields to hold against the CPU)}."""
     import os
 
+    import numpy as np
     import torch
 
     from arterynetwork_tpu_torch import flow
+    from arterynetwork_tpu_torch.flow import experiments as exp
     from arterynetwork_tpu_torch.flow.distribute import distribute_flow_study
     from arterynetwork_tpu_torch.flow.longitudinal import run_longitudinal
 
@@ -3716,9 +3978,33 @@ def _drivers(net, parts, radius_end, rng, store, device, physics):
         return {"fractions": out["fractions"], "edge_flow": out["edge_flow"],
                 "rms": out["rms_mismatch_mmhg"]}
 
+    def seeded():
+        return np.random.default_rng(3)
+
+    def sanity():
+        """GBMTest3's errors against its ground truth, relative to the
+        ground truth's largest pressure and flow."""
+        out = exp.solver_sanity_test(net, rng=seeded(), device=device)
+        gt = flow.create_ground_truth(net, option=2, rng=seeded())
+        return {"rel_errors": [
+            float(out["max_pressure_error_pa"] / np.max(np.abs(gt.pressure))),
+            float(out["max_flow_error_m3s"] / np.max(np.abs(gt.flow)))]}
+
+    def fields(out, *names):
+        return {n: out[n] for n in names}
+
     if physics == "dw":
         return {"gbm5_dw": gbm5}
     return {
+        "compute_network_test": lambda: fields(exp.compute_network_test(
+            net, rng=seeded(), device=device), "pressure", "flow"),
+        "solver_sanity": sanity,
+        "radius_perturbation": lambda: fields(exp.radius_perturbation_study(
+            net, rng=seeded(), device=device), "perturbed_flow"),
+        "pressure_perturbation": lambda: fields(
+            exp.pressure_perturbation_study(net, {"P0": 0.1}, parts,
+                                            rng=seeded(), device=device),
+            "pressure", "perturbed_flow"),
         "flow_split": lambda: flow.flow_split_study(net, radius_end,
                                                     **common),
         "same_flow": lambda: flow.same_flow_study(net, radius_end, **common),
@@ -3769,9 +4055,16 @@ def _fit_vs_eager(res, run):
 
 def phase_studies():
     """The study drivers at depth 10 on the card; the solver drivers also
-    on the CPU, which they must equal within 1e-9."""
+    on the CPU, which they must equal within 1e-9.  The experiment
+    drivers (flow/experiments.py) run twice on the card, the second call
+    capturing no graph (the cache of solves), and once on the CPU;
+    GBMTest3 (solver_sanity) reports its errors against the ground
+    truth, relative to the largest pressure and flow, which the card's
+    and the CPU's runs must give within 1e-9 of each other."""
     import os
     import tempfile
+
+    import numpy as np
 
     from arterynetwork_tpu_torch.io import ArtifactStore
 
@@ -3782,7 +4075,7 @@ def phase_studies():
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build") as tmp:
         for physics, name in [("hw", n) for n in STUDY_DRIVERS] + [
-                ("dw", "gbm5_dw")]:
+                ("dw", "gbm5_dw")] + [("hw", n) for n in EXPERIMENTS]:
             def run(device):
                 net, parts, radius_end, rng = _study_net(STUDY_DEPTH,
                                                          physics)
@@ -3802,7 +4095,33 @@ def phase_studies():
             if name == "distribute":
                 out["distribute_fit"] = _fit_vs_eager(res, run)
                 msg += f"; the fit {out['distribute_fit']}"
-            if name in ("tp_fit", "gbm4", "gbm5", "gbm5_dw", "distribute"):
+            if name in EXPERIMENTS:
+                with solve_loops() as again:
+                    res2 = run("cuda")
+                calls = [sum(st.captures for st in c) for c in (loops, again)]
+                out["graphs"][name + " again"] = _graph_solves(
+                    f"studies {name} again", again)
+                msg += f"; graphs captured by each call {calls}"
+                if not (calls[1] == 0 and all(
+                        np.array_equal(res[k], res2[k]) for k in res)):
+                    raise SystemExit(f"studies {name}: the second call "
+                                     f"captured {calls[1]} graphs or "
+                                     f"differs from the first")
+            if name == "solver_sanity":
+                # its outputs are errors: the card's and the CPU's differ
+                # by at most the distance of the two solutions
+                ref = run("cpu")
+                rel = float(np.max(np.abs(np.subtract(res["rel_errors"],
+                                                      ref["rel_errors"]))))
+                out["max_rel_cpu"][name] = rel
+                msg += (f", errors against the ground truth (pressure, flow; "
+                        f"relative) {res['rel_errors']} on the card, "
+                        f"{ref['rel_errors']} on the CPU")
+                if rel > 1e-9:
+                    raise SystemExit(f"studies {name}: card and CPU differ "
+                                     f"({rel})")
+            elif name in ("tp_fit", "gbm4", "gbm5", "gbm5_dw",
+                          "distribute") + EXPERIMENTS:
                 t0 = time.perf_counter()
                 ref = run("cpu")
                 out["cpu_seconds"][name] = time.perf_counter() - t0
@@ -3997,7 +4316,8 @@ def main():
         f"Speck phases with their data {time.perf_counter() - t_speck:.1f} s")
     t_flow = time.perf_counter()
     for phase in (lambda: phase_flow_determinism(result512["network"]),
-                  phase_flow_solvers, phase_longitudinal, phase_studies,
+                  phase_flow_solvers, phase_solve_cache, phase_longitudinal,
+                  phase_studies,
                   lambda: phase_figures(result512)):
         t1 = time.perf_counter()
         phase()

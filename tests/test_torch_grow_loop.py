@@ -380,8 +380,8 @@ class _FakeCuda:
     def stream(self, stream):
         return contextlib.nullcontext()
 
-    def graph_pool_handle(self):
-        return "pool"
+    class MemPool:
+        id = "pool"
 
     def CUDAGraph(self, keep_graph=False):
         return self._Graph(self, keep_graph)

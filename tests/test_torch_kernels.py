@@ -819,8 +819,12 @@ def test_graph_driven_solves_match_eager_loop(cuda, solver, dtype, T,
     """Graph-driven and eager loops give the same bits (pressures, flows,
     velocities, residuals, iterations) with the same host reads, linear
     solves and CG steps; the graph run replays captured graphs, and a
-    second call captures anew and gives the same bits."""
+    second call replays the first call's (the cache of solves), captures
+    none and gives the same bits."""
+    from arterynetwork_tpu_torch.flow.solvers import clear_solve_cache
+
     system, plan = _flow_rows(7, T, dtype, cuda)
+    clear_solve_cache()
     (a, sa), (b, sb) = (_flow_solve(system, plan, solver) for _ in range(2))
     with monkeypatch.context() as m:
         m.setattr(grow_loop, "loop_for",
@@ -833,8 +837,10 @@ def test_graph_driven_solves_match_eager_loop(cuda, solver, dtype, T,
         assert (s.cg_steps is None) == (se.cg_steps is None)
         if s.cg_steps is not None:
             assert torch.equal(s.cg_steps, se.cg_steps)
-        assert s.captures > 0 and s.replays > 0
-    assert (sa.captures, sa.replays) == (sb.captures, sb.replays)
+        assert s.replays > 0
+    assert sa.captures > 0 and (sa.hits, sa.misses) == (0, 1)
+    assert sb.captures == 0 and (sb.hits, sb.misses) == (1, 0)
+    assert sb.replays >= sum(sb.runs.values())
     assert se.captures == se.replays == 0
 
 
@@ -843,8 +849,11 @@ def test_graph_driven_batch_with_a_large_lu(cuda, monkeypatch):
     """A batch's dense LU of ~1,000 unknowns (MAGMA's, which capture
     refuses) runs between the two graphs of each Newton step: the same
     bits and reads as the eager loop, two graphs per captured step."""
+    from arterynetwork_tpu_torch.flow.solvers import clear_solve_cache
+
     system, plan = _flow_rows(10, 3, torch.float64, cuda, allow_merge=False)
     assert system.num_unknown_pressures > 512
+    clear_solve_cache()
     graph, sg = _flow_solve(system, plan, "dense")
     with monkeypatch.context() as m:
         m.setattr(grow_loop, "loop_for",

@@ -631,8 +631,8 @@ class _StandIn:
     def stream(self, stream):
         return contextlib.nullcontext()
 
-    def graph_pool_handle(self):
-        return "pool"
+    class MemPool:
+        id = "pool"
 
     def CUDAGraph(self, keep_graph=False):
         return self._Graph(self)
@@ -642,8 +642,9 @@ class _Logged(grow_loop.GraphLoop):
     """A GraphLoop that logs each step it runs (how), each read and how
     many graphs each capture made."""
 
-    def __init__(self, device, counters=(), watch=None, log=None):
-        super().__init__(device, counters, watch)
+    def __init__(self, device, counters=(), watch=None, log=None,
+                 keep=False):
+        super().__init__(device, counters, watch, keep)
         self.log = [] if log is None else log
 
     def read(self, stop):
@@ -681,9 +682,9 @@ def _stand_in(monkeypatch, log, graphs=True):
         cuda=fake, int32=torch.int32,
         empty=lambda *a, pin_memory=False, **k: torch.empty(*a, **k)))
 
-    def loop_for(device, counters=(), watch=None):
+    def loop_for(device, counters=(), watch=None, keep=False):
         if graphs:
-            return _Logged(device, counters, watch, log)
+            return _Logged(device, counters, watch, log, keep)
         return _HostLogged(log)
 
     monkeypatch.setattr(grow_loop, "loop_for", loop_for)
