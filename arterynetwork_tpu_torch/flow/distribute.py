@@ -261,48 +261,80 @@ class DistributeResult(NamedTuple):
     theta: torch.Tensor
 
 
-def distribute_flow(
-    system: DistributeSystem,
-    max_iter: int = 40,
-    tol_mmhg: float = 1e-9,
-    init_theta: Optional[torch.Tensor] = None,
-) -> DistributeResult:
-    """Solve for split fractions by Levenberg-damped Gauss-Newton.
+# the fits' cache: per device and thread, at most this many entries
+# (the flow solves' number, flow/solvers.py; an entry holds an E x E
+# matrix and the system's small tables)
+_CACHE_SIZE = 8
+_cache = grow_loop.LoopCache(_CACHE_SIZE)
+# the system's tensor fields, copied into an entry; its Python numbers,
+# which the captured step takes as constants, are in the key
+_TENSOR_FIELDS = ("level_edge", "level_head", "level_tail", "level_valid",
+                  "dp_coeff", "k", "heads", "tails", "merge_weight",
+                  "terminal_nodes", "desired_pressure")
+_NUMBER_FIELDS = ("root", "inlet_flow", "inlet_pressure", "num_nodes")
 
-    Completes ``distributeFlowTest`` (fluidSimulation.py:2758): "find a way
-    (by optimization) to distribute the flow ... such that the resulting
-    terminating pressures match the desired values".  Runs ``max_iter``
-    steps on the device with no host read; ``tol_mmhg`` is accepted and
-    unused, as in the JAX package.
 
-    The steps are the JAX package's ``lax.scan``
-    (arterynetwork_tpu/flow/distribute.py:310): each writes ``theta`` and
-    the damping ``lam``, buffers made before the loop, in place, and runs
-    under the key "gn" in ``ops/grow_loop.loop_for``'s loop: on a card
-    step 1 eagerly, step 2 captured as a CUDA graph (the Jacobian and
-    both damped solves in it), steps 3.. replayed; on the CPU eagerly.
-    The last call's counts are ``distribute_flow.steps``, ``.captures``,
-    ``.replays`` and ``.capture_s``.
-    """
-    E = system.num_edges
-    dtype = system.dp_coeff.dtype
-    device = system.dp_coeff.device
-    theta = (torch.zeros(E, dtype=dtype, device=device) if init_theta is None
-             else torch.as_tensor(init_theta, dtype=dtype,
-                                  device=device).clone())
+def clear_distribute_cache(device=None):
+    """Drop this thread's cached fits on ``device`` (or on every
+    device): the next fit of each key captures its step anew."""
+    _cache.clear(device)
 
-    def res_fn(th):
-        return residuals(th, system)
 
-    jac_fn = jacfwd(res_fn)
-    eye = torch.eye(E, dtype=dtype, device=device)
-    lam = torch.tensor(1e-3, dtype=dtype, device=device)
+def distribute_cache_info():
+    """The fits' cache: hits, misses, evictions, entries by device."""
+    return _cache.info()
 
-    def step():
+
+def _key(system: DistributeSystem, max_iter):
+    """What the JAX jit keys on: the shape and dtype of every tensor
+    field, the Python numbers the step takes as constants (root, inlet
+    flow and pressure, node count) and ``max_iter``."""
+    return (tuple((tuple(getattr(system, f).shape), getattr(system, f).dtype)
+                  for f in _TENSOR_FIELDS),
+            tuple(getattr(system, f) for f in _NUMBER_FIELDS), max_iter)
+
+
+class _Fit(grow_loop.CachedLoop):
+    """A cached fit, the counterpart of one executable in the JAX jit's
+    cache: a copy of the system's tensors (which ``residuals``,
+    ``propagate`` and the Jacobian ``jacfwd(res_fn)`` read), ``theta``,
+    the damping ``lam``, the identity ``eye``, and the Gauss-Newton
+    step, which reads nothing else, under the key "gn"."""
+
+    def __init__(self, system: DistributeSystem):
+        dtype = system.dp_coeff.dtype
+        device = system.dp_coeff.device
+        super().__init__(torch.device(device))
+        E = system.num_edges
+        self.system = system._replace(
+            **{f: getattr(system, f).clone() for f in _TENSOR_FIELDS})
+        self.theta = torch.zeros(E, dtype=dtype, device=device)
+        self.lam = torch.zeros((), dtype=dtype, device=device)
+        self.eye = torch.eye(E, dtype=dtype, device=device)
+
+    def load(self, system: DistributeSystem, init_theta):
+        """Copy a call's system and initial ``theta`` in, and reset
+        ``lam`` to 1e-3 (eagerly: a capture refuses a host number
+        written into a device tensor)."""
+        for f in _TENSOR_FIELDS:
+            getattr(self.system, f).copy_(getattr(system, f))
+        if init_theta is None:
+            self.theta.zero_()
+        else:
+            self.theta.copy_(torch.as_tensor(init_theta,
+                                              dtype=self.theta.dtype))
+        self.lam.fill_(1e-3)
+
+    def step(self):
         """One damped Gauss-Newton step: two trial dampings, the better
         kept if it lowers the cost; ``theta`` and ``lam`` updated."""
+        system, theta, lam, eye = self.system, self.theta, self.lam, self.eye
+
+        def res_fn(th):
+            return residuals(th, system)
+
         r = res_fn(theta)
-        J = jac_fn(theta)
+        J = jacfwd(res_fn)(theta)
         g = J.T @ r
         H = J.T @ J
 
@@ -323,14 +355,56 @@ def distribute_flow(
             accept, torch.where(use1, lam * 0.3, lam * 3.0), lam * 10.0),
             1e-12, 1e8))
 
-    loop = grow_loop.loop_for(torch.device(device))
-    with loop.stream():
-        for _ in range(max_iter):
-            loop.run("gn", step)
+
+@grow_loop.frees_loop_caches
+def distribute_flow(
+    system: DistributeSystem,
+    max_iter: int = 40,
+    tol_mmhg: float = 1e-9,
+    init_theta: Optional[torch.Tensor] = None,
+) -> DistributeResult:
+    """Solve for split fractions by Levenberg-damped Gauss-Newton.
+
+    Completes ``distributeFlowTest`` (fluidSimulation.py:2758): "find a way
+    (by optimization) to distribute the flow ... such that the resulting
+    terminating pressures match the desired values".  Runs ``max_iter``
+    steps on the device with no host read; ``tol_mmhg`` is accepted and
+    unused, as in the JAX package.
+
+    The steps are the JAX package's ``lax.scan``
+    (arterynetwork_tpu/flow/distribute.py:310): each writes ``theta`` and
+    the damping ``lam``, buffers made before the loop, in place, and runs
+    under the key "gn" in ``ops/grow_loop.loop_for``'s loop: on a card
+    step 1 eagerly, step 2 captured as a CUDA graph (the Jacobian and
+    both damped solves in it), steps 3.. replayed; on the CPU eagerly.
+
+    As ``jax.jit`` compiles the scan once per shape, the step and every
+    tensor it reads lie in a cached entry (``_Fit``), one per key: the
+    shape and dtype of each of the system's tensors, its root, inlet
+    flow and pressure and node count, ``max_iter``, and the loop route.
+    A call copies its system and ``init_theta`` in first; on a hit all
+    ``max_iter`` steps are replays and nothing is captured, on a miss
+    the step is captured on its second run (or, after one step, at the
+    call's end).  The results are new tensors.  The last call's counts
+    are ``distribute_flow.steps``, ``.captures``, ``.replays``,
+    ``.capture_s`` and ``.hit``; ``clear_distribute_cache()`` and
+    ``distribute_cache_info()`` manage the cache.
+    """
+    device = torch.device(system.dp_coeff.device)
+    with _cache.use(device, _key(system, max_iter),
+                    lambda: _Fit(system)) as (fit, hit):
+        fit.load(system, init_theta)
+        loop = fit.loop
+        with loop.stream():
+            for _ in range(max_iter):
+                loop.run("gn", fit.step)
+            loop.capture_pending()
+        theta = fit.out(fit.theta)
     distribute_flow.steps = loop.runs.get("gn", 0)
     distribute_flow.captures = loop.captures
     distribute_flow.replays = loop.replays
     distribute_flow.capture_s = loop.capture_s
+    distribute_flow.hit = hit
 
     pressure, _, eflow, _ = propagate(theta, system)
     r_term = (pressure[system.terminal_nodes]
@@ -349,6 +423,7 @@ def distribute_flow(
 distribute_flow.steps = distribute_flow.captures = 0
 distribute_flow.replays = 0
 distribute_flow.capture_s = 0.0
+distribute_flow.hit = False
 
 
 def distribute_flow_study(

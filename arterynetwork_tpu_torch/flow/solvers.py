@@ -448,6 +448,9 @@ def clear_solve_cache(device=None):
             _drop(entries, key)
 
 
+grow_loop.release_hooks.append(clear_solve_cache)
+
+
 def solve_cache_info():
     """The flow solves' cache: hits, misses and evictions since the
     process started, and this thread's entries by device."""

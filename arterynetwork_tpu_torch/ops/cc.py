@@ -48,6 +48,86 @@ def check_voxel_count(shape):
             f"(2^31 - 2) are allowed")
 
 
+# the components' cache: per device and thread, at most this many
+# entries; an entry holds five int32 or bool volumes of the mask's shape
+# (at Speck scale several GB) between calls, so one
+_CACHE_SIZE = 1
+_cache = grow_loop.LoopCache(_CACHE_SIZE)
+
+
+def clear_components_cache(device=None):
+    """Drop this thread's cached labellings on ``device`` (or on every
+    device)."""
+    _cache.clear(device)
+
+
+def components_cache_info():
+    """The components' cache: hits, misses, evictions, entries by
+    device."""
+    return _cache.info()
+
+
+class _Labelling(grow_loop.CachedLoop):
+    """A cached labelling, the counterpart of one executable in the JAX
+    jit's cache: the foreground ``fg``, the flat indices ``idx``, the
+    background sentinel ``big`` (n), the labels, the pointer-jump table
+    ``padded`` (n + 1 entries, the last n), ``changed``, the round count,
+    ``stop``, and the round, which reads nothing else, under the key
+    "round".  Its key: the shape (n), ``connectivity`` and
+    ``max_rounds`` (the round takes all three as constants)."""
+
+    def __init__(self, shape, device, connectivity, max_rounds):
+        super().__init__(device)
+        n = int(np.prod(shape))
+        self.shape, self.n = shape, n
+        self.connectivity, self.max_rounds = connectivity, max_rounds
+        self.fg = torch.empty(shape, dtype=torch.bool, device=device)
+        self.idx = torch.arange(n, dtype=torch.int32,
+                                device=device).reshape(shape)
+        self.big = torch.tensor(n, dtype=torch.int32, device=device)
+        self.labels = torch.empty(shape, dtype=torch.int32, device=device)
+        self.padded = torch.full((n + 1,), n, dtype=torch.int32,
+                                 device=device)
+        self.changed = torch.zeros((), dtype=torch.bool, device=device)
+        self.rounds, self.stop = (torch.zeros((), dtype=torch.int32,
+                                              device=device)
+                                  for _ in range(2))
+
+    def load(self, fg):
+        """Copy a call's foreground in, rebuild the labels from it and
+        reset the scalars."""
+        self.fg.copy_(fg)
+        torch.where(self.fg, self.idx, self.big, out=self.labels)
+        for t in (self.changed, self.rounds, self.stop):
+            t.zero_()
+
+    def propagate(self, lab):
+        best = lab
+        for axis in range(lab.dim()):
+            if self.connectivity == 1:
+                best = torch.minimum(best, _axis_min3(lab, axis))
+            else:
+                best = _axis_min3(best, axis)
+        return torch.where(self.fg, torch.minimum(lab, best), self.big)
+
+    def jump(self, lab):
+        flat = lab.reshape(-1)
+        self.padded[:self.n].copy_(flat)
+        return self.padded[torch.clamp_max(flat, self.n)].reshape(
+            self.shape)
+
+    def step(self):
+        labels = self.labels
+        new = self.jump(self.jump(self.propagate(labels)))
+        self.changed.copy_(torch.any(new != labels))
+        labels.copy_(new)
+        self.rounds.add_(1)
+        self.stop.copy_(torch.where(self.changed
+                                    & (self.rounds < self.max_rounds),
+                                    -1, 0))
+
+
+@grow_loop.frees_loop_caches
 def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
                          device=None):
     """Label 26-connected (connectivity=3) or 6-connected (connectivity=1)
@@ -63,60 +143,45 @@ def connected_components(mask, connectivity: int = 3, max_rounds: int = 64,
     ``grow_loop.loop_for(device)``: on a CUDA device a ``GraphLoop``
     (the first round eager, the second captured as a CUDA graph, later
     ones replayed).  The host reads ``stop`` once per round (the first
-    round's condition is known on the host).  The last call's counts are
+    round's condition is known on the host).
+
+    As ``jax.jit`` compiles the loop once per shape and static
+    arguments, the round and every tensor it reads lie in a cached entry
+    (``_Labelling``; its docstring lists what it holds and its key); a
+    call copies its foreground in and rebuilds the labels there, and on
+    a hit every round is a replay and nothing is captured (a miss
+    captures as above and, after one round, at the call's end).  The
+    result is a new tensor.  The last call's counts are
     ``connected_components.rounds``, ``.reads``, ``.captures``,
-    ``.replays`` and ``.capture_s``.  A volume of 2^31 - 1 voxels or more
-    raises ValueError before anything is allocated
+    ``.replays``, ``.capture_s`` and ``.hit``.  A volume of 2^31 - 1
+    voxels or more raises ValueError before anything is allocated
     (``check_voxel_count``).
     """
     check_voxel_count(mask.shape if hasattr(mask, "shape")
                       else np.shape(mask))
     device = _resolve_device(mask, device)
     fg = _as_device(mask, device) != 0
-    shape = fg.shape
-    n = int(np.prod(shape))
-    idx = torch.arange(n, dtype=torch.int32, device=device).reshape(shape)
-    big = torch.tensor(n, dtype=torch.int32, device=device)
-    labels = torch.where(fg, idx, big)
-    padded = torch.full((n + 1,), n, dtype=torch.int32, device=device)
-    changed = torch.zeros((), dtype=torch.bool, device=device)
-    rounds, stop = (torch.zeros((), dtype=torch.int32, device=device)
-                    for _ in range(2))
-
-    def propagate(lab):
-        best = lab
-        for axis in range(lab.dim()):
-            if connectivity == 1:
-                best = torch.minimum(best, _axis_min3(lab, axis))
-            else:
-                best = _axis_min3(best, axis)
-        return torch.where(fg, torch.minimum(lab, best), big)
-
-    def jump(lab):
-        flat = lab.reshape(-1)
-        padded[:n].copy_(flat)
-        return padded[torch.clamp_max(flat, n)].reshape(shape)
-
-    def step():
-        new = jump(jump(propagate(labels)))
-        changed.copy_(torch.any(new != labels))
-        labels.copy_(new)
-        rounds.add_(1)
-        stop.copy_(torch.where(changed & (rounds < max_rounds), -1, 0))
-
-    loop = grow_loop.loop_for(device)
-    with loop.stream():
-        if max_rounds > 0:
-            loop.run("round", step)
-            while loop.read(stop) < 0:
-                loop.run("round", step)
-    _count(loop)
-    return torch.where(fg, labels + 1, 0).to(torch.int32)
+    shape = tuple(fg.shape)
+    with _cache.use(device, (shape, connectivity, max_rounds),
+                    lambda: _Labelling(shape, device, connectivity,
+                                       max_rounds)) as (lab, hit):
+        lab.load(fg)
+        loop = lab.loop
+        with loop.stream():
+            if max_rounds > 0:
+                loop.run("round", lab.step)
+                while loop.read(lab.stop) < 0:
+                    loop.run("round", lab.step)
+            loop.capture_pending()
+        out = torch.where(lab.fg, lab.labels + 1, 0).to(torch.int32)
+    _count(loop, hit)
+    return out
 
 
-def _count(loop):
+def _count(loop, hit=False):
     """``connected_components``'s counts from the loop its rounds ran
     in."""
+    connected_components.hit = hit
     connected_components.rounds = loop.runs.get("round", 0)
     connected_components.reads = loop.reads
     connected_components.captures = loop.captures

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from . import grow_loop
 from .region_grow import _as_device, _resolve_device
 
 _INF = 1e12
@@ -76,6 +77,7 @@ def _axis_minplus_exact(f, axis, s2):
     return out.reshape(lead + (L,)).movedim(-1, axis)
 
 
+@grow_loop.frees_loop_caches
 def edt_squared(mask, band: int | None = 32, sampling=None, device=None):
     """Squared Euclidean distance to the nearest background (zero) voxel,
     f32 on ``device`` (by default the device of a ``mask`` tensor; host

@@ -56,18 +56,54 @@ loop.stream():``.
   between the replays of the graphs before and after it (an LU that
   capture refuses).
 
-A loop's graphs are dropped at the end of its call, after the side
-stream has finished, so no pointer outlives the buffers of the call;
-except a loop made with ``keep=True`` (the flow solver's cached solves,
-flow/solvers.py): it keeps its graphs, and the steps that ran once, from
-call to call, until ``close()``.  Such a loop captures, at the end of a
-call (``capture_pending``), each step that ran once and so was never
+As ``jax.jit`` compiles a loop once per shape and static arguments, a
+loop's graphs stay from call to call of the same shapes: every tensor
+its steps read or write lies in a cached entry (a ``CachedLoop``), the
+counterpart of one executable in the jit's cache, one per key, in a
+``LoopCache`` per user (per device and thread, the least recently used
+entry evicted and closed before a new one is made).  An entry holds its
+steps, which read nothing else, and a loop made with ``keep=True``,
+which keeps its graphs, and the steps that ran once, until ``close()``.
+A call copies its inputs into the entry before any step runs; on a hit
+every step is a replay, the first one too, and nothing is captured.  On
+a miss the loop captures as above and, at the end of the call
+(``capture_pending``), each step that ran once and so was never
 captured, without running it, so that a later call replays every step
-the first call reached.  A capture that fails raises: nothing carries
-on eagerly.  Capture runs nothing, so a cache entry that a step made
+the first call reached (a key that no call of the entry has run yet is
+captured on its second run, as on a miss).  A key holds every shape and
+dtype of the entry's tensors, every Python number a captured step
+takes as a constant, and the loop route (``loop_for`` itself, so a
+caller that swaps it gets entries of its own).  Only a loop on CUDA
+graphs keeps its entry (``CachedLoop.kept``): on the host loop a call's
+entry is its own, used once, and its tensors may be the results.
+Results are new tensors, never a kept entry's (``CachedLoop.out``).  A
+capture, replay or copy-in that fails raises and drops the entry:
+nothing carries on eagerly.  The users: the flow solver
+(flow/solvers.py, its own cache of the same design), ``distribute_flow``,
+both thinnings and the components (``CachedLoop`` entries), and the four
+growers (``CachedGrow`` entries: ``graph_loop`` keeps an entry's
+captured steps and instantiated while graph, and a later grow runs pass
+1 eagerly and launches that graph again).  A loop with no entry
+(``graph_loop`` called without one, a ``GraphLoop`` made without
+``keep``) drops its graphs at the end of its call, after the side stream
+has finished.  Capture runs nothing, so a cache entry that a step made
 while it was captured would hold memory that no kernel has written; a
 loop given ``watch`` raises if the objects ``watch()`` lists changed
 during a capture.
+
+An entry of a volume loop holds volumes between calls, which JAX's
+cache of executables does not: each of those loops keeps one entry,
+``clear_loop_caches()`` empties every cache, and a function that
+``frees_loop_caches`` wraps (each cached loop, the vesselness filters,
+the EDTs) that runs out of device memory while this thread holds
+entries or graph pools releases them all, the flow solves' cache and
+the pools' blocks too (``release_device_memory``), and runs once more.
+
+torch.profiler does not see the kernels of a while graph instantiated
+before it started, so a grow traced by it builds a while graph of its
+own from the entry's kept steps for that launch (``graph_loop``): a
+warm grow's kernels show in the trace, at the cost of one instantiation
+(counted in ``capture_s``).
 
 Every capture goes into one ``torch.cuda.MemPool`` per (device, thread),
 which lives for the process (``graph_pool``): the pool keeps its blocks
@@ -108,12 +144,17 @@ hands to its ``SolveStats``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import gc
 import inspect
 import threading
 import time
 
 import torch
+from torch import OutOfMemoryError
+from torch.autograd import _profiler_enabled
 
 from . import graph_while
 
@@ -139,20 +180,44 @@ class _GraphPool:
         self.id = self.mempool.id
         self.last = None
         self.side = torch.cuda.Stream(device)
+        # the host words every read goes through, made once: a pinned
+        # block freed while a stream captures makes the host allocator
+        # record an event into the capture, whose later query fails
+        self.pinned = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        self.pinned3 = torch.empty(3, dtype=torch.int32, pin_memory=True)
+
+
+def _pool_device(device):
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def graph_pool(device):
     """This thread's graph pool on ``device`` (a torch.device), made at
     its first use and kept for the process: ``.id`` for
     ``capture_begin(pool=...)``, ``.last`` the last graph captured,
-    ``.side`` the loops' side stream."""
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    ``.side`` the loops' side stream, ``.pinned`` and ``.pinned3`` the
+    pinned host words of the loops' reads."""
+    device = _pool_device(device)
     pools = _pools.__dict__.setdefault("by_device", {})
     pool = pools.get(device)
     if pool is None:
         pool = pools[device] = _GraphPool(device)
     return pool
+
+
+def _retire_pool(device):
+    """After a capture into this thread's pool on ``device`` that failed
+    to end: torch stops routing the capture's allocations into the pool
+    only when a capture ends cleanly, so every later capture into it
+    would fail ("already recording to mempool_id").  Later captures go
+    into a new pool; the old one is kept for the graphs captured into
+    it."""
+    pools = _pools.__dict__.setdefault("by_device", {})
+    old = pools.pop(_pool_device(device), None)
+    if old is not None:
+        _pools.__dict__.setdefault("retired", []).append(old)
 
 
 def _read(stop, pinned=None):
@@ -187,8 +252,9 @@ def read_stop_and_counts(words, pinned):
     return [int(w) for w in pinned]
 
 
-def host_loop(steps, stop):
-    """Run ``steps`` in turn while ``stop`` < 0, eagerly -> steps run."""
+def host_loop(steps, stop, entry=None):
+    """Run ``steps`` in turn while ``stop`` < 0, eagerly -> steps run
+    (an ``entry``'s graphs, if any, are not used)."""
     n = 0
     while read_stop(stop) < 0:
         steps[n % len(steps)]()
@@ -273,8 +339,8 @@ class GraphLoop(HostLoop):
     def __init__(self, device, counters=(), watch=None, keep=False):
         super().__init__()
         self.device = device
-        self.side = graph_pool(device).side
-        self.pinned = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        pool = graph_pool(device)
+        self.side, self.pinned = pool.side, pool.pinned
         self.counters = list(counters)
         self.watch = watch
         self.keep = keep
@@ -318,16 +384,26 @@ class GraphLoop(HostLoop):
         # thread_local: another thread of the caller may use the card
         # meanwhile; this thread's unsafe calls still raise
         pool = graph_pool(self.device)
-        graph.capture_begin(pool=pool.id, capture_error_mode="thread_local")
+        # no garbage collection inside a capture: a finalizer run there
+        # (a loop's pinned word, an event) would act on the capturing
+        # stream
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            step()
-        except BaseException:
+            graph.capture_begin(pool=pool.id,
+                                capture_error_mode="thread_local")
             try:
-                graph.capture_end()     # leave capture mode; the step's
-            except RuntimeError:        # error is the one to report
-                pass
-            raise
-        graph.capture_end()
+                step()
+            except BaseException:
+                try:
+                    graph.capture_end()     # leave capture mode; the
+                except RuntimeError:        # step's error is the one to
+                    _retire_pool(self.device)       # report
+                raise
+            graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         pool.last = graph
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
@@ -390,12 +466,21 @@ class GraphLoop(HostLoop):
                 split()
 
 
-def graph_loop(steps, stop):
+def graph_loop(steps, stop, entry=None):
     """Run ``steps`` in turn while ``stop`` < 0: the first eagerly, then
     the rest in one launch of a while graph around each step captured
-    once -> steps run."""
-    loop = GraphLoop(stop.device)
-    loop_graph = None
+    once -> steps run.  With ``entry`` (a ``CachedGrow``, whose tensors
+    the steps alone read) the captured steps and the while graph are the
+    entry's, built at its first grow of two passes or more and launched
+    again by every later one; else they are built for this grow and
+    closed at its end.  Under torch.profiler a grow with an entry's while
+    graph builds one of its own from the entry's steps, launches it and
+    closes it: the profiler misses the kernels of a while graph
+    instantiated before it started."""
+    loop = GraphLoop(stop.device) if entry is None else entry.graph_loop()
+    loop.reset_counts()
+    loop_graph = None if entry is None else entry.while_graph
+    built = None
     try:
         with loop.stream():
             if read_stop(stop, loop.pinned) >= 0:
@@ -403,27 +488,42 @@ def graph_loop(steps, stop):
             steps[0]()
             if read_stop(stop, loop.pinned) >= 0:
                 return 1
-            order = steps[1:] + steps[:1]
-            graphs = [loop.capture(s, keep_graph=True) for s in order]
-            # stop, steps run (count_step), set_while's launches
-            words = stop.new_zeros(3)
-            t0 = time.perf_counter()
-            loop_graph = graph_while.WhileGraph(
-                [g.raw_cuda_graph() for g, _ in graphs], stop, words[1:])
-            loop.capture_s += time.perf_counter() - t0
+            if loop_graph is None:
+                order = steps[1:] + steps[:1]
+                graphs = [loop.capture(s, keep_graph=True) for s in order]
+                # stop, steps run (count_step), set_while's launches
+                words = stop.new_zeros(3)
+                t0 = time.perf_counter()
+                loop_graph = built = graph_while.WhileGraph(
+                    [g.raw_cuda_graph() for g, _ in graphs], stop,
+                    words[1:])
+                loop.capture_s += time.perf_counter() - t0
+                if entry is not None:
+                    entry.graphs, entry.words = graphs, words
+                    entry.while_graph = loop_graph
+            else:
+                graphs, words = entry.graphs, entry.words
+                words.zero_()
+                if _profiler_enabled():
+                    t0 = time.perf_counter()
+                    loop_graph = built = graph_while.WhileGraph(
+                        [g.raw_cuda_graph() for g, _ in graphs], stop,
+                        words[1:])
+                    loop.capture_s += time.perf_counter() - t0
             loop_graph.launch(loop.side)
             graph_loop.launches += 1
             words[:1].copy_(stop.reshape(1))
             code, ran, heads = read_stop_and_counts(
-                words, torch.empty(3, dtype=torch.int32, pin_memory=True))
+                words, graph_pool(stop.device).pinned3)
             if code < 0 or ran < 1:
                 raise RuntimeError(f"the while graph ended with stop {code} "
                                    f"after {ran} steps")
             _count_runs(loop, graphs, ran, heads)
             return 1 + ran
     finally:
-        if loop_graph is not None:      # after the side stream finished
-            loop_graph.close()
+        if built is not None and (entry is None       # after the side
+                                  or built is not entry.while_graph):
+            built.close()                           # stream finished
         graph_loop.captures += loop.captures
         graph_loop.replays += loop.replays
         graph_loop.capture_s += loop.capture_s
@@ -449,11 +549,13 @@ graph_loop.launches = 0
 graph_loop.capture_s = 0.0
 
 
-def drive(steps, stop):
+def drive(steps, stop, entry=None):
     """Run a grower's ``steps`` in turn while its ``stop`` < 0 -> steps
-    run: ``graph_loop`` on a CUDA device, ``host_loop`` on the CPU."""
+    run: ``graph_loop`` on a CUDA device (with the while graph of
+    ``entry``, a ``CachedGrow``, when given), ``host_loop`` on the
+    CPU."""
     if stop.device.type == "cuda":
-        return graph_loop(steps, stop)
+        return graph_loop(steps, stop, entry)
     return host_loop(steps, stop)
 
 
@@ -463,3 +565,229 @@ def loop_for(device, counters=(), watch=None, keep=False):
     if device.type == "cuda":
         return GraphLoop(device, counters, watch, keep)
     return HostLoop()
+
+
+class CachedLoop:
+    """An entry of a ``LoopCache``: a subclass makes, on the entry's
+    device, every tensor its steps read or write, and its steps; this
+    holds ``loop``, ``loop_for``'s loop with ``keep=True``, which keeps
+    their graphs from call to call (or ``loop``, for a caller that runs
+    the steps once, without a cache).  ``begin()`` opens a call (before
+    its copy-in), ``end()`` closes it (after its results were made)."""
+
+    def __init__(self, device, counters=(), watch=None, loop=None):
+        self.device = device
+        self.loop = (loop_for(device, counters, watch, keep=True)
+                     if loop is None else loop)
+        self.done = None        # the last call's end, on a card
+
+    @property
+    def kept(self):
+        """Whether a ``LoopCache`` keeps the entry after its call: its
+        loop is a ``GraphLoop`` (a host loop captures nothing to keep)."""
+        return isinstance(self.loop, GraphLoop)
+
+    def out(self, t):
+        """A result made of the entry's tensor ``t``: a copy when the
+        cache keeps the entry, else ``t`` itself."""
+        return t.clone() if self.kept else t
+
+    def begin(self):
+        """Wait, on the current stream, for the reads the last call made
+        of the entry's tensors after its loop, and zero the loop's
+        counts."""
+        if self.done is not None:
+            torch.cuda.current_stream(self.device).wait_event(self.done)
+        if self.loop is not None:
+            self.loop.reset_counts()
+
+    def end(self):
+        if self.device.type == "cuda":
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(self.device))
+
+    def close(self):
+        """Drop the graphs, once the side stream has finished."""
+        self.loop.close()
+
+
+_caches = []            # every LoopCache, for clear_loop_caches()
+
+
+class LoopCache:
+    """One loop's cached entries, per device and thread: at most ``size``
+    of them, the least recently used evicted (and closed) before a new
+    one is made.  ``hits``, ``misses`` and ``evictions`` count what it
+    did since the process started."""
+
+    def __init__(self, size):
+        self.size = size
+        self.local = threading.local()
+        self.hits = self.misses = self.evictions = 0
+        _caches.append(self)
+
+    def entries(self, device):
+        """This thread's entries on ``device``, least recent first."""
+        by_device = self.local.__dict__.setdefault("by_device", {})
+        return by_device.setdefault(str(device),
+                                    collections.OrderedDict())
+
+    @contextlib.contextmanager
+    def use(self, device, key, make):
+        """The entry of ``key`` (with ``loop_for`` in front of it) on
+        ``device``, made by ``make()`` on a miss -> (entry, hit), inside
+        the entry's ``begin()`` and ``end()``; an error inside drops the
+        entry and is raised.  A new entry is kept after its call if it
+        is ``kept``, else dropped (a host loop's: every call makes its
+        own).  Where the cache holds entries of this ``loop_for``, the
+        least recent go before ``make()``, so that no more than ``size``
+        entries live at once; others go when a new one is kept."""
+        key = (loop_for,) + tuple(key)
+        entries = self.entries(device)
+        entry = entries.get(key)
+        hit = entry is not None
+        if hit:
+            entries.move_to_end(key)
+            self.hits += 1
+        else:
+            if any(k[0] is loop_for for k in entries):
+                self._evict(entries)
+            entry = make()
+        try:
+            entry.begin()
+            yield entry, hit
+            entry.end()
+        except BaseException:
+            if entries.get(key) is entry:
+                del entries[key]
+            try:
+                entry.close()
+            except RuntimeError:    # the error above is the one to report
+                pass
+            raise
+        if not hit and entry.kept:
+            self._evict(entries)
+            entries[key] = entry
+            self.misses += 1
+
+    def _evict(self, entries):
+        """Close the least recent ``entries`` until one more fits."""
+        while len(entries) >= self.size:
+            entries.pop(next(iter(entries))).close()
+            self.evictions += 1
+
+    def clear(self, device=None):
+        """Drop this thread's entries on ``device`` (a torch.device or a
+        string), or on every device."""
+        by_device = self.local.__dict__.get("by_device", {})
+        for name in list(by_device) if device is None else [str(device)]:
+            entries = by_device.get(name, {})
+            while entries:
+                entries.popitem(last=False)[1].close()
+
+    def held(self):
+        """This thread's entries, on every device."""
+        return sum(len(e) for e in
+                   self.local.__dict__.get("by_device", {}).values())
+
+    def info(self):
+        """Hits, misses and evictions since the process started, and
+        this thread's entries by device."""
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+                "entries": {d: len(e) for d, e in
+                            self.local.__dict__.get("by_device",
+                                                    {}).items()}}
+
+
+def clear_loop_caches(device=None):
+    """Drop this thread's entries of every ``LoopCache`` on ``device``
+    (or on every device): the next call of each loop is a miss.  The
+    flow solves' cache (flow/solvers.py) has its own
+    ``clear_solve_cache``."""
+    for cache in _caches:
+        cache.clear(device)
+
+
+# the other caches of graphs in the pools, emptied with the loops' when
+# device memory runs out (flow/solvers.py's clear_solve_cache)
+release_hooks = []
+
+
+def _holds_memory():
+    """Whether this thread holds cached entries or graph pools."""
+    return (bool(_pools.__dict__.get("by_device"))
+            or any(c.held() for c in _caches))
+
+
+def release_device_memory():
+    """Drop this thread's loop caches, the caches in ``release_hooks``
+    and its graph pools (the next capture makes a new pool), and hand
+    torch's cached blocks back to the device: a private pool's blocks go
+    back only once every graph captured into it is gone."""
+    clear_loop_caches()
+    for hook in release_hooks:
+        hook()
+    _pools.__dict__.pop("by_device", None)
+    _pools.__dict__.pop("retired", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frees_loop_caches(fn):
+    """``fn``, which on running out of device memory while this thread
+    holds cached entries or graph pools releases them
+    (``release_device_memory()``) and runs once more; the times it did
+    are counted in ``frees_loop_caches.frees``."""
+
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        try:
+            return fn(*args, **kw)
+        except OutOfMemoryError:
+            if not _holds_memory():
+                raise
+        # out of the handler, so the failed run's frames are gone
+        release_device_memory()
+        frees_loop_caches.frees += 1
+        return fn(*args, **kw)
+
+    return call
+
+
+frees_loop_caches.frees = 0
+
+
+class CachedGrow(CachedLoop):
+    """An entry of a grower's ``LoopCache``: a subclass makes the
+    grower's state and input buffers and its ``steps``, which read
+    nothing else; this holds what ``graph_loop`` builds around them at
+    the entry's first grow of two passes or more (the steps captured
+    once, uninstantiated, the instantiated while graph and its three
+    device words), and the ``GraphLoop`` that captured them.  A later
+    grow runs pass 1 eagerly and launches the same while graph
+    (``set_while`` at its head re-arms the condition): it captures
+    nothing.  A grow of 0 or 1 passes builds nothing."""
+
+    def __init__(self, device):
+        self.device = device
+        self.done = None
+        self.loop = None
+        self.graphs = self.words = self.while_graph = None
+
+    def graph_loop(self):
+        """The entry's GraphLoop, made at its first graph-driven grow."""
+        if self.loop is None:
+            self.loop = GraphLoop(self.device)
+        return self.loop
+
+    def close(self):
+        """Destroy the while graph and drop the steps' graphs, once the
+        side stream has finished."""
+        if self.loop is None:
+            return
+        self.loop.side.synchronize()
+        graph, self.while_graph, self.graphs = self.while_graph, None, None
+        if graph is not None:
+            graph.close()
+        self.loop.close()

@@ -164,39 +164,79 @@ def region_grow(data, seed_mask, excluded_mask=None, H: float = DEFAULT_H,
                             max_segment_size, iter_max, num_bins)
 
 
-def _region_grow_xla(data, seed_mask, excluded_mask=None,
-                     H: float = DEFAULT_H,
-                     max_segment_size: int = DEFAULT_MAX_SEGMENT_SIZE,
-                     iter_max: int = DEFAULT_ITER_MAX,
-                     num_bins: int = 256) -> RegionGrowResult:
-    """Full-grid path (the JAX package's XLA path), in the data's dtype
-    (f64 stays f64, anything else is f32)."""
-    dtype = torch.float64 if data.dtype == torch.float64 else torch.float32
-    data = data.to(dtype)
-    seg = seed_mask.to(torch.bool, copy=True)   # the loop's, in place
-    track_active = excluded_mask is not None
-    if track_active:
-        active = ~excluded_mask.to(torch.bool)
-    else:
-        active = torch.ones_like(seg)
-    # Initial update: the front activates excluded voxels it touches
-    # (reference :137 runs during the initial boundary build).
-    active = active | dilate26(seg)
+# the full-grid growers' cache: per device and thread, at most this
+# many entries; an entry holds the volume's bins and two masks between
+# calls, so one
+_CACHE_SIZE = 1
+_cache = grow_loop.LoopCache(_CACHE_SIZE)
 
-    bin_idx, bin_values = _quantize(data, num_bins)
-    bins = _bin_ids(bin_idx, num_bins)
-    bins_flat = bins.reshape(-1)
-    K = _gaussian_kernel(bin_values, H, dtype)
 
-    # With no excluded voxels the active mask is identically True: skip
-    # its dilations, and outer_hist = total_hist - inner_hist.
-    if not track_active:
-        hist_all = masked_histogram_one(
-            bins_flat, torch.ones_like(bins_flat, dtype=torch.bool),
-            num_bins).to(dtype)
+def clear_grow_cache(device=None):
+    """Drop this thread's cached full-grid grows on ``device`` (or on
+    every device)."""
+    _cache.clear(device)
 
-    def compute_flips(seg, active):
-        if track_active:
+
+def grow_cache_info():
+    """The full-grid growers' cache: hits, misses, evictions, entries by
+    device."""
+    return _cache.info()
+
+
+class _Grow(grow_loop.CachedGrow):
+    """A cached full-grid grow, the counterpart of one executable in the
+    JAX jit's cache: the bins (``bins_flat`` a view), the Gaussian
+    kernel ``K``, the whole volume's histogram (without an excluded
+    mask), the segmentation and active masks, the count, the iteration
+    count, ``stop`` and the step, which reads nothing else.  Its key:
+    the shape, the dtype, ``num_bins``, whether it tracks ``active``
+    (an excluded mask), ``max_segment_size`` and ``iter_max`` (the step
+    takes them as constants)."""
+
+    def __init__(self, shape, dtype, num_bins, track_active,
+                 max_segment_size, iter_max, device):
+        super().__init__(device)
+        self.bins = torch.empty(shape, device=device, dtype=(
+            torch.uint8 if num_bins <= 256 else torch.int32))
+        self.bins_flat = self.bins.reshape(-1)
+        self.K = torch.empty((num_bins, num_bins), dtype=dtype,
+                             device=device)
+        self.hist_all = (None if track_active else
+                         torch.empty(num_bins, dtype=dtype, device=device))
+        self.seg, self.active = (torch.empty(shape, dtype=torch.bool,
+                                             device=device)
+                                 for _ in range(2))
+        self.count, self.it, self.stop = (torch.zeros((), dtype=torch.int32,
+                                                      device=device)
+                                          for _ in range(3))
+        self.dtype, self.num_bins = dtype, num_bins
+        self.track_active = track_active
+        self.max_segment_size, self.iter_max = max_segment_size, iter_max
+        self.steps = [self.step]
+
+    def load(self, seed, active, bins, K):
+        """Copy a call's seed, active mask, bins and kernel in; the
+        volume's histogram, the count and ``stop`` from them."""
+        self.seg.copy_(seed)
+        self.active.copy_(active)
+        self.bins.copy_(bins)
+        self.K.copy_(K)
+        if not self.track_active:
+            self.hist_all.copy_(masked_histogram_one(
+                self.bins_flat, torch.ones_like(self.bins_flat,
+                                                dtype=torch.bool),
+                self.num_bins))
+        self.count.copy_(torch.sum(self.seg, dtype=torch.int32))
+        self.it.zero_()
+        # a seed already at/over the size cap never updates (reference
+        # semantics: the capped state is returned unmodified)
+        self.stop.copy_(torch.where(self.count >= self.max_segment_size,
+                                    1, -1))
+
+    def compute_flips(self):
+        seg, active, bins_flat = self.seg, self.active, self.bins_flat
+        dtype, num_bins = self.dtype, self.num_bins
+        if self.track_active:
             inner_bnd = seg & dilate26(~seg)
             outer_bnd = (~seg) & active & dilate26(seg)
             all_bnd = inner_bnd | outer_bnd
@@ -211,35 +251,77 @@ def _region_grow_xla(data, seed_mask, excluded_mask=None,
             all_bnd = dilate26(seg) & dilate26(~seg)
             inner_hist = masked_histogram_one(
                 bins_flat, seg.reshape(-1), num_bins).to(dtype)
-            outer_hist = hist_all - inner_hist
-        diff = _decision_table(K, inner_hist, outer_hist)
-        return all_bnd & torch.logical_xor(seg, sign_lookup(bins, diff))
+            outer_hist = self.hist_all - inner_hist
+        diff = _decision_table(self.K, inner_hist, outer_hist)
+        return all_bnd & torch.logical_xor(seg, sign_lookup(self.bins,
+                                                            diff))
 
-    count = torch.sum(seg, dtype=torch.int32)
-    it = torch.zeros((), dtype=torch.int32, device=data.device)
-    # a seed already at/over the size cap never updates (reference
-    # semantics: the capped state is returned unmodified)
-    stop = torch.where(count >= max_segment_size, 1, -1).to(torch.int32)
-
-    def step():                 # seg, active, count, it, stop in place
+    def step(self):             # seg, active, count, it, stop in place
         # unconditional apply + post-checked size cap: the state that
         # first reaches the cap is final (reference :101-104)
-        flips = compute_flips(seg, active)
+        seg, count, it = self.seg, self.count, self.it
+        flips = self.compute_flips()
         n_pos = torch.sum(flips & ~seg, dtype=torch.int32)
         n_neg = torch.sum(flips & seg, dtype=torch.int32)
         converged = (n_pos + n_neg) == 0
         seg.logical_xor_(flips)                   # no-op when converged
-        if track_active:                          # flips are empty then too
-            active.logical_or_(dilate26(dilate26(flips)))
+        if self.track_active:                     # flips are empty then too
+            self.active.logical_or_(dilate26(dilate26(flips)))
         count.add_(n_pos).sub_(n_neg)
         it.add_((~converged).to(torch.int32))
-        stop.copy_(_stop_code(converged, count >= max_segment_size, it,
-                              iter_max))
+        self.stop.copy_(_stop_code(converged,
+                                   count >= self.max_segment_size, it,
+                                   self.iter_max))
 
-    grow_loop.drive([step], stop)
-    return RegionGrowResult(segmented_map=seg, active_map=active,
-                            iterations=it, segmented_count=count,
-                            stop_reason=stop)
+
+@grow_loop.frees_loop_caches
+def _region_grow_xla(data, seed_mask, excluded_mask=None,
+                     H: float = DEFAULT_H,
+                     max_segment_size: int = DEFAULT_MAX_SEGMENT_SIZE,
+                     iter_max: int = DEFAULT_ITER_MAX,
+                     num_bins: int = 256) -> RegionGrowResult:
+    """Full-grid path (the JAX package's XLA path), in the data's dtype
+    (f64 stays f64, anything else is f32).
+
+    As ``jax.jit`` compiles the grower once per shape and static
+    arguments, its step and every tensor it reads lie in a cached entry
+    (``_Grow``; its docstring lists what it holds and its key; the loop
+    route, ``grow_loop.drive``, is in the key too).  A call copies its
+    seed, active mask, bins and kernel in; on a card a grow after the
+    entry's first graph-driven one of two passes or more runs pass 1
+    eagerly and launches the entry's while graph, capturing nothing.
+    The result's tensors are new."""
+    dtype = torch.float64 if data.dtype == torch.float64 else torch.float32
+    data = data.to(dtype)
+    seg = seed_mask.to(torch.bool)
+    track_active = excluded_mask is not None
+    if track_active:
+        active = ~excluded_mask.to(torch.bool)
+    else:
+        active = torch.ones_like(seg)
+    # Initial update: the front activates excluded voxels it touches
+    # (reference :137 runs during the initial boundary build).
+    active = active | dilate26(seg)
+
+    bin_idx, bin_values = _quantize(data, num_bins)
+    bins = _bin_ids(bin_idx, num_bins)
+    K = _gaussian_kernel(bin_values, H, dtype)
+    # With no excluded voxels the active mask is identically True: skip
+    # its dilations, and outer_hist = total_hist - inner_hist.
+    device, shape = data.device, tuple(seg.shape)
+    key = (grow_loop.drive, shape, dtype, num_bins, track_active,
+           max_segment_size, iter_max)
+    with _cache.use(device, key, lambda: _Grow(
+            shape, dtype, num_bins, track_active, max_segment_size,
+            iter_max, device)) as (grow, _):
+        grow.load(seg, active, bins, K)
+        del seg, active, bins, K
+        grow_loop.drive(grow.steps, grow.stop, grow)
+        return RegionGrowResult(segmented_map=grow.out(grow.seg),
+                                active_map=grow.out(grow.active),
+                                iterations=grow.it.clone(),
+                                segmented_count=grow.count.clone(),
+                                stop_reason=grow.stop.clone())
 
 
 # ----------------------------------------------------------------------

@@ -170,6 +170,107 @@ def _compact(active_flat, k_pad):
     return ids[:k_pad].contiguous()
 
 
+# the frontier grows' cache: per device and thread, at most this many
+# entries; an entry holds the volume's bins and segmentation between
+# calls, so one
+_CACHE_SIZE = 1
+_cache = grow_loop.LoopCache(_CACHE_SIZE)
+
+
+def clear_frontier_cache(device=None):
+    """Drop this thread's cached frontier grows on ``device`` (or on
+    every device)."""
+    _cache.clear(device)
+
+
+def frontier_cache_info():
+    """The frontier grows' cache: hits, misses, evictions, entries by
+    device."""
+    return _cache.info()
+
+
+class _FrontierGrow(grow_loop.CachedGrow):
+    """A cached frontier grow, the counterpart of one executable in the
+    JAX jit's cache: the bins, the Gaussian kernel ``K``, the volume's
+    and the region's histograms, the segmentation, the active tiles,
+    ``k_max`` as a tensor, the slot indices, the iteration count,
+    ``stop`` and the step, which reads nothing else.  Its key: the
+    shape, ``num_bins``, ``tile``, ``k_max``, ``nb``,
+    ``max_segment_size`` and ``iter_max`` (the step takes them as
+    constants)."""
+
+    def __init__(self, shape, num_bins, tile, k_max, nb, max_segment_size,
+                 iter_max, device):
+        super().__init__(device)
+        self.ntz, self.nty = _tile_grid(shape, tile)
+        self.NT = self.ntz * self.nty
+        self.bins = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.K = torch.empty((num_bins, num_bins), dtype=torch.float32,
+                             device=device)
+        self.hist_all = torch.empty(num_bins, dtype=torch.float32,
+                                    device=device)
+        self.inner = torch.empty(num_bins, dtype=torch.int32, device=device)
+        self.seg = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.active = torch.empty(self.NT, dtype=torch.bool, device=device)
+        self.nact_cap = torch.tensor(k_max, dtype=torch.int64, device=device)
+        self.slots = torch.arange(k_max, device=device)
+        self.it, self.stop = (torch.zeros((), dtype=torch.int32,
+                                          device=device) for _ in range(2))
+        self.num_bins, self.tile, self.k_max, self.nb = (num_bins, tile,
+                                                         k_max, nb)
+        self.max_segment_size, self.iter_max = max_segment_size, iter_max
+        self.steps = [self.step]
+
+    def load(self, seed, bins, K):
+        """Copy a call's seed, bins and kernel in; the histograms, the
+        active tiles and ``stop`` from them."""
+        self.seg.copy_(seed)
+        self.bins.copy_(bins)
+        self.K.copy_(K)
+        flat = self.bins.reshape(-1)
+        self.hist_all.copy_(masked_histogram_one(
+            flat, torch.ones_like(flat, dtype=torch.bool), self.num_bins))
+        self.inner.copy_(masked_histogram_one(flat, seed.reshape(-1),
+                                              self.num_bins))
+        bnd0 = dilate26(seed) & dilate26(~seed)
+        self.active.copy_(_per_tile(bnd0, self.tile) > 0)
+        self.it.zero_()
+        self.stop.copy_(torch.where(torch.sum(self.inner)
+                                    >= self.max_segment_size, 1, -1))
+
+    def step(self):             # seg, active, inner, it, stop in place
+        active, inner, it, k_max = self.active, self.inner, self.it, self.k_max
+        NT, device = self.NT, self.seg.device
+        inner_f = inner.to(torch.float32)
+        diff = _decision_table(self.K, inner_f, self.hist_all - inner_f)
+        n_active = torch.sum(active)
+        ids = _compact(active, k_max)
+        nact = torch.minimum(n_active, self.nact_cap)
+        dhist, flags = frontier_step(self.seg, self.bins, ids,
+                                     nact.to(torch.int32).reshape(1),
+                                     pack_sign_words(diff), self.tile,
+                                     self.nb)
+        valid = self.slots < nact
+        nf = flags[:, 0] * valid
+        hb = flags[:, 1] * valid
+        tid = ids.long()
+        zeros = torch.zeros(NT, dtype=torch.int32, device=device)
+        flipped = zeros.scatter_reduce(0, tid, nf, "amax") > 0
+        keep = zeros.scatter_reduce(0, tid, hb, "amax") > 0
+        proc = zeros.scatter_reduce(0, tid, valid.to(torch.int32),
+                                    "amax") > 0
+        active.copy_((active & ~proc) | keep
+                     | dilate26(flipped.reshape(self.ntz,
+                                                self.nty)).reshape(-1))
+        inner.add_(dhist)
+        converged = (torch.sum(nf) == 0) & (n_active <= k_max)
+        it.add_((~converged).to(torch.int32))
+        self.stop.copy_(_stop_code(converged,
+                                   torch.sum(inner) >= self.max_segment_size,
+                                   it, self.iter_max))
+
+
+@grow_loop.frees_loop_caches
 def region_grow_frontier(data, seed_mask, H: float = DEFAULT_H,
                          max_segment_size: int = DEFAULT_MAX_SEGMENT_SIZE,
                          iter_max: int = DEFAULT_ITER_MAX,
@@ -182,65 +283,39 @@ def region_grow_frontier(data, seed_mask, H: float = DEFAULT_H,
     card).  Always f32, as the JAX grower traces under x32.  Its step
     goes to ``grow_loop.drive``: on a card every pass after the first
     runs in one while-graph launch and ``stop`` is read min(passes, 2) +
-    1 times; on the CPU once per pass plus once."""
+    1 times; on the CPU once per pass plus once.
+
+    As ``jax.jit`` compiles the grower once per shape and static
+    arguments, the step and every tensor it reads lie in a cached entry
+    (``_FrontierGrow``; its docstring lists what it holds and its key;
+    the loop route, ``grow_loop.drive``, is in the key too).  A call
+    copies its seed, bins and kernel in; on a card a grow after the
+    entry's first graph-driven one of two passes or more runs pass 1
+    eagerly and launches the entry's while graph, capturing nothing.
+    The result's tensors are new."""
     if num_bins % 32 or not 32 <= num_bins <= 256:
         raise ValueError("num_bins must be a multiple of 32, at most 256")
     device = _resolve_device(data, device)
     data = _as_device(data, device).to(torch.float32)
     seg0 = _as_device(seed_mask, device, torch.bool)
-    Z, Y, X = data.shape
     ntz, nty = _tile_grid(data.shape, tile)
-    NT = ntz * nty
-    k_max = min(int(k_max), NT)
+    k_max = min(int(k_max), ntz * nty)
+    tile = tuple(tile)
 
     bin_idx, bin_values = _quantize(data, num_bins)
-    bins = _bin_ids(bin_idx, num_bins).contiguous()
-    bins_flat = bins.reshape(-1)
-    hist_all = masked_histogram_one(
-        bins_flat, torch.ones_like(bins_flat, dtype=torch.bool), num_bins)
-    inner = masked_histogram_one(bins_flat, seg0.reshape(-1),
-                                 num_bins).to(torch.int32)
+    bins = _bin_ids(bin_idx, num_bins)
     K = _gaussian_kernel(bin_values, H, torch.float32)
-
-    bnd0 = dilate26(seg0) & dilate26(~seg0)
-    active = _per_tile(bnd0, tile) > 0
-    seg = seg0.to(torch.uint8).contiguous()
-    nact_cap = torch.tensor(k_max, dtype=torch.int64, device=device)
-    slots = torch.arange(k_max, device=device)
-    it = torch.zeros((), dtype=torch.int32, device=device)
-    stop = torch.where(torch.sum(inner) >= max_segment_size, 1,
-                       -1).to(torch.int32)
-
-    def step():                 # seg, active, inner, it, stop in place
-        inner_f = inner.to(torch.float32)
-        diff = _decision_table(K, inner_f, hist_all - inner_f)
-        n_active = torch.sum(active)
-        ids = _compact(active, k_max)
-        nact = torch.minimum(n_active, nact_cap)
-        dhist, flags = frontier_step(seg, bins, ids,
-                                     nact.to(torch.int32).reshape(1),
-                                     pack_sign_words(diff), tile, nb)
-        valid = slots < nact
-        nf = flags[:, 0] * valid
-        hb = flags[:, 1] * valid
-        tid = ids.long()
-        zeros = torch.zeros(NT, dtype=torch.int32, device=device)
-        flipped = zeros.scatter_reduce(0, tid, nf, "amax") > 0
-        keep = zeros.scatter_reduce(0, tid, hb, "amax") > 0
-        proc = zeros.scatter_reduce(0, tid, valid.to(torch.int32),
-                                    "amax") > 0
-        active.copy_((active & ~proc) | keep
-                     | dilate26(flipped.reshape(ntz, nty)).reshape(-1))
-        inner.add_(dhist)
-        converged = (torch.sum(nf) == 0) & (n_active <= k_max)
-        it.add_((~converged).to(torch.int32))
-        stop.copy_(_stop_code(converged,
-                              torch.sum(inner) >= max_segment_size, it,
-                              iter_max))
-
-    grow_loop.drive([step], stop)
-    seg = seg != 0
-    return RegionGrowResult(
-        segmented_map=seg, active_map=torch.ones_like(seg), iterations=it,
-        segmented_count=torch.sum(seg, dtype=torch.int32),
-        stop_reason=stop)
+    shape = tuple(seg0.shape)
+    key = (grow_loop.drive, shape, num_bins, tile, k_max, nb,
+           max_segment_size, iter_max)
+    with _cache.use(device, key, lambda: _FrontierGrow(
+            shape, num_bins, tile, k_max, nb, max_segment_size, iter_max,
+            device)) as (grow, _):
+        grow.load(seg0, bins, K)
+        grow_loop.drive(grow.steps, grow.stop, grow)
+        seg = grow.seg != 0
+        return RegionGrowResult(
+            segmented_map=seg, active_map=torch.ones_like(seg),
+            iterations=grow.it.clone(),
+            segmented_count=torch.sum(seg, dtype=torch.int32),
+            stop_reason=grow.stop.clone())

@@ -256,6 +256,87 @@ def fused_sweep_banded_dma(seg_t, idx_t, sign_words, valid_yx=None,
     return fused_sweep_banded(seg_t, idx_t, sign_words, valid_yx, band)
 
 
+# the fused grows' cache: per device and thread, at most this many
+# entries; an entry holds the volume's bins and two segmentations
+# between calls, so one
+_CACHE_SIZE = 1
+_cache = grow_loop.LoopCache(_CACHE_SIZE)
+
+
+def clear_fused_cache(device=None):
+    """Drop this thread's cached fused grows on ``device`` (or on every
+    device)."""
+    _cache.clear(device)
+
+
+def fused_cache_info():
+    """The fused grows' cache: hits, misses, evictions, entries by
+    device."""
+    return _cache.info()
+
+
+class _FusedGrow(grow_loop.CachedGrow):
+    """A cached fused grow, the counterpart of one executable in the JAX
+    jit's cache: the bins, the Gaussian kernel ``K``, the volume's and
+    the region's histograms, the two segmentations K2 sweeps between
+    (A -> B, B -> A), its +/- counts ``dh``, the count, the iteration
+    count, ``stop`` and the two steps, which read nothing else.  Its
+    key: the shape, ``max_segment_size`` and ``iter_max`` (the steps
+    take them as constants)."""
+
+    def __init__(self, shape, max_segment_size, iter_max, device):
+        super().__init__(device)
+        self.bins = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.K = torch.empty((NUM_BINS, NUM_BINS), dtype=torch.float32,
+                             device=device)
+        self.hist_all = torch.empty(NUM_BINS, dtype=torch.float32,
+                                    device=device)
+        self.inner = torch.empty(NUM_BINS, dtype=torch.int32, device=device)
+        self.segs = tuple(torch.empty(shape, dtype=torch.uint8,
+                                      device=device) for _ in range(2))
+        self.dh = torch.zeros((2, NUM_BINS), dtype=torch.int32,
+                              device=device)
+        self.count, self.it, self.stop = (torch.zeros((), dtype=torch.int32,
+                                                      device=device)
+                                          for _ in range(3))
+        self.max_segment_size, self.iter_max = max_segment_size, iter_max
+        self.steps = [lambda: self.step(*self.segs),
+                      lambda: self.step(*self.segs[::-1])]
+
+    def load(self, seed, bins, K):
+        """Copy a call's seed, bins and kernel in; the histograms, the
+        count and ``stop`` from them."""
+        self.segs[0].copy_(seed)
+        self.bins.copy_(bins)
+        self.K.copy_(K)
+        flat = self.bins.reshape(-1)
+        self.hist_all.copy_(masked_histogram_one(
+            flat, torch.ones_like(flat, dtype=torch.bool), NUM_BINS))
+        self.inner.copy_(masked_histogram_one(flat, seed.reshape(-1),
+                                              NUM_BINS))
+        self.count.copy_(torch.sum(seed, dtype=torch.int32))
+        self.it.zero_()
+        self.stop.copy_(torch.where(self.count >= self.max_segment_size,
+                                    1, -1))
+
+    def step(self, src, dst):
+        inner, dh, count, it = self.inner, self.dh, self.count, self.it
+        inner_f = inner.to(torch.float32)
+        diff = _decision_table(self.K, inner_f, self.hist_all - inner_f)
+        dh.zero_()
+        fused_sweep_counts(src, self.bins, pack_sign_words(diff), out=dst,
+                           dh=dh)
+        n_pos, n_neg = dh.sum(dim=1, dtype=torch.int32)
+        converged = (n_pos + n_neg) == 0
+        inner.add_(dh[0]).sub_(dh[1])
+        count.add_(n_pos).sub_(n_neg)
+        it.add_((~converged).to(torch.int32))
+        self.stop.copy_(_stop_code(converged,
+                                   count >= self.max_segment_size, it,
+                                   self.iter_max))
+
+
+@grow_loop.frees_loop_caches
 def region_grow_fused(data, seed_mask, H: float = DEFAULT_H,
                       max_segment_size: int = DEFAULT_MAX_SEGMENT_SIZE,
                       iter_max: int = DEFAULT_ITER_MAX,
@@ -266,46 +347,33 @@ def region_grow_fused(data, seed_mask, H: float = DEFAULT_H,
     to the card).  Always f32, as the JAX grower traces under x32.  Its
     two steps (A -> B, B -> A) go to ``grow_loop.drive``: on a card every
     pass after the first runs in one while-graph launch and ``stop`` is
-    read min(passes, 2) + 1 times; on the CPU once per pass plus once."""
+    read min(passes, 2) + 1 times; on the CPU once per pass plus once.
+
+    As ``jax.jit`` compiles the grower once per shape and static
+    arguments, the steps and every tensor they read lie in a cached
+    entry (``_FusedGrow``; its docstring lists what it holds and its
+    key; the loop route, ``grow_loop.drive``, is in the key too).  A
+    call copies its seed, bins and kernel in; on a card a grow after the
+    entry's first graph-driven one of two passes or more runs pass 1
+    eagerly and launches the entry's while graph, capturing nothing.
+    The result's tensors are new."""
     device = _resolve_device(data, device)
     data = _as_device(data, device).to(torch.float32)
     seg0 = _as_device(seed_mask, device, torch.bool)
 
     bin_idx, bin_values = _quantize(data, NUM_BINS)
-    bins = _bin_ids(bin_idx, NUM_BINS).contiguous()
-    bins_flat = bins.reshape(-1)
+    bins = _bin_ids(bin_idx, NUM_BINS)
     K = _gaussian_kernel(bin_values, H, torch.float32)
-    hist_all = masked_histogram_one(
-        bins_flat, torch.ones_like(bins_flat, dtype=torch.bool), NUM_BINS)
-    inner = masked_histogram_one(bins_flat, seg0.reshape(-1),
-                                 NUM_BINS).to(torch.int32)
-
-    # the loop's state, written in place: K2 sweeps one seg buffer into
-    # the other (ping-pong), dh takes its counts
-    segs = (seg0.to(torch.uint8).contiguous(),
-            torch.empty(seg0.shape, dtype=torch.uint8, device=device))
-    dh = torch.zeros((2, NUM_BINS), dtype=torch.int32, device=device)
-    count = torch.sum(seg0, dtype=torch.int32)
-    it = torch.zeros((), dtype=torch.int32, device=data.device)
-    stop = torch.where(count >= max_segment_size, 1, -1).to(torch.int32)
-
-    def step(src, dst):
-        inner_f = inner.to(torch.float32)
-        diff = _decision_table(K, inner_f, hist_all - inner_f)
-        dh.zero_()
-        fused_sweep_counts(src, bins, pack_sign_words(diff), out=dst, dh=dh)
-        n_pos, n_neg = dh.sum(dim=1, dtype=torch.int32)
-        converged = (n_pos + n_neg) == 0
-        inner.add_(dh[0]).sub_(dh[1])
-        count.add_(n_pos).sub_(n_neg)
-        it.add_((~converged).to(torch.int32))
-        stop.copy_(_stop_code(converged, count >= max_segment_size, it,
-                              iter_max))
-
-    n = grow_loop.drive([lambda: step(*segs), lambda: step(*segs[::-1])],
-                        stop)
-    seg = segs[n % 2] != 0
-    return RegionGrowResult(segmented_map=seg,
-                            active_map=torch.ones_like(seg),
-                            iterations=it, segmented_count=count,
-                            stop_reason=stop)
+    shape = tuple(seg0.shape)
+    with _cache.use(device, (grow_loop.drive, shape, max_segment_size,
+                             iter_max),
+                    lambda: _FusedGrow(shape, max_segment_size, iter_max,
+                                       device)) as (grow, _):
+        grow.load(seg0, bins, K)
+        n = grow_loop.drive(grow.steps, grow.stop, grow)
+        seg = grow.segs[n % 2] != 0
+        return RegionGrowResult(segmented_map=seg,
+                                active_map=torch.ones_like(seg),
+                                iterations=grow.it.clone(),
+                                segmented_count=grow.count.clone(),
+                                stop_reason=grow.stop.clone())

@@ -128,7 +128,18 @@ def _subfield_index(shape, origin=(0, 0, 0), device="cpu"):
     return z[:, None, None] * 4 + y[None, :, None] * 2 + x[None, None, :]
 
 
-_LUTS = {}          # device -> the unpacked table on it
+class _Tables(dict):
+    """device -> the unpacked table on it; ``clear()`` also drops the
+    cached thinnings (``_clear_hooks``), whose graphs read the tables."""
+
+    def clear(self):
+        super().clear()
+        for hook in _clear_hooks:
+            hook()
+
+
+_clear_hooks = []
+_LUTS = _Tables()
 
 
 def _device_lut(device):
@@ -187,6 +198,140 @@ def _level2(level):
     return lf * lf + 0.5
 
 
+# the device thinnings' cache: per device and thread, at most this many
+# entries.  An entry holds the mask's box (fg, an f32 d2 and eight bool
+# sub-masks: at Speck scale several GB) between calls, and the pipeline
+# repeats a thinning of one mask, so one.
+_CACHE_SIZE = 1
+_cache = grow_loop.LoopCache(_CACHE_SIZE)
+
+
+def clear_skeletonize_cache(device=None):
+    """Drop this thread's cached device thinnings on ``device`` (or on
+    every device)."""
+    _cache.clear(device)
+
+
+def skeletonize_cache_info():
+    """The device thinnings' cache: hits, misses, evictions, entries by
+    device."""
+    return _cache.info()
+
+
+_clear_hooks.append(_cache.clear)
+
+
+def _tables():
+    """The tables built so far (a loop's ``watch``: none may be built
+    while a pass is captured)."""
+    return list(_LUTS.values())
+
+
+class _Thinning(grow_loop.CachedLoop):
+    """A cached device thinning, the counterpart of one executable in
+    the JAX jit's cache: the box's foreground and band-32 d2, its eight
+    parity sub-masks (from the parity of the box's origin), the table
+    (or None: label propagation), the loop's scalars (level, stall
+    count, pass count, ``deleted``, max d2, ``stop``, the final passes'
+    unlimited level) and the two passes, "wave" and "final", which read
+    nothing else.  Its key: the box's shape, its origin's parity,
+    ``max_waves`` and ``preserve_endpoints`` (the passes take both as
+    constants)."""
+
+    def __init__(self, shape, parity, device, max_waves, preserve_endpoints,
+                 lut, loop=None):
+        super().__init__(device, watch=_tables, loop=loop)
+        self.scalars(device, max_waves, preserve_endpoints)
+        self.fg = torch.empty(shape, dtype=torch.bool, device=device)
+        self.d2 = torch.empty(shape, dtype=torch.float32, device=device)
+        subfield = _subfield_index(shape, parity, device)
+        self.sub_masks = [subfield == sf for sf in range(8)]
+        self.lut = lut
+
+    def scalars(self, device, max_waves, preserve_endpoints):
+        """The loop's scalars on ``device`` and its two constants."""
+        self.level = torch.ones((), dtype=torch.int32, device=device)
+        self.stalled, self.it, self.stop = (torch.zeros_like(self.level)
+                                            for _ in range(3))
+        self.deleted = torch.zeros((), dtype=torch.bool, device=device)
+        self.max_d2 = torch.zeros((), dtype=torch.float32, device=device)
+        self.far = torch.full((), 1e12, dtype=torch.float32, device=device)
+        self.max_waves = max_waves
+        self.preserve_endpoints = preserve_endpoints
+
+    def reset(self):
+        self.level.fill_(1)
+        for t in (self.stalled, self.it, self.stop, self.deleted,
+                  self.max_d2):
+            t.zero_()
+
+    def load(self, fg, d2):
+        """Copy a call's box and d2 in; reset the scalars."""
+        self.fg.copy_(fg)
+        self.d2.copy_(d2)
+        self.reset()
+
+    def delete_pass(self, level2):
+        """One peel attempt at the distance bound ``level2``; 8
+        subfields.  Sets ``deleted``: anything deleted."""
+        fg, deleted = self.fg, self.deleted
+        at_level = self.d2 <= level2
+        deleted.zero_()
+        for sf in range(8):
+            cand = _subfield_deletions(fg, neighborhood_codes(fg),
+                                       at_level & self.sub_masks[sf],
+                                       self.preserve_endpoints, self.lut)
+            fg.logical_and_(~cand)
+            deleted.logical_or_(cand.any())
+
+    def fg_max_d2(self):
+        """The largest d2 of a foreground voxel (0 with none)."""
+        return torch.where(self.fg, self.d2, 0.0).max()
+
+    def wave_stop(self):
+        """Go on while f32(level)^2 <= max fg d2 + 2 and stalled < max."""
+        self.max_d2.copy_(self.fg_max_d2())
+        lf = self.level.to(torch.float32)
+        self.stop.copy_(torch.where((lf * lf <= self.max_d2 + 2.0)
+                                    & (self.stalled < self.max_waves),
+                                    -1, 0))
+
+    def wave_step(self):
+        level, deleted = self.level, self.deleted
+        self.delete_pass(_level2(level))
+        # stay at this level until stable, then move outward
+        torch.where(deleted, level, level + 1, out=level)
+        self.stalled.copy_(torch.where(deleted, 0, self.stalled + 1))
+        self.wave_stop()
+
+    def final_step(self):
+        """A cleanup pass at unlimited level; go on while it deleted."""
+        self.delete_pass(self.far)
+        self.it.add_(1)
+        self.stop.copy_(torch.where(self.deleted
+                                    & (self.it < self.max_waves), -1, 0))
+
+    def run(self):
+        """The wave loop and the final loop, in the entry's loop (inside
+        its ``stream()``): 1 + wave passes + final passes reads, or one
+        read and no pass with no foreground."""
+        loop = self.loop
+        self.wave_stop()
+        self.stop.copy_(torch.where(self.max_d2 == 0, 1,
+                                    self.stop))     # 1: no foreground
+        go = loop.read(self.stop)
+        if go == 1:
+            return
+        while go < 0:
+            loop.run("wave", self.wave_step)
+            go = loop.read(self.stop)
+        if self.max_waves > 0:
+            loop.run("final", self.final_step)
+            while loop.read(self.stop) < 0:
+                loop.run("final", self.final_step)
+
+
+@grow_loop.frees_loop_caches
 def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
                 device=None, predicate: str = "auto"):
     """Thin a binary volume to its curve skeleton, on ``device`` (by
@@ -208,9 +353,20 @@ def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
     once before the wave loop and once after each pass of either loop
     (the final loop's first condition is known on the host): 1 + wave
     passes + final passes reads, besides the crop box's one read before
-    the loops.  The last call's counts are ``skeletonize.wave_passes``,
-    ``.final_passes``, ``.reads``, ``.captures``, ``.replays`` and
-    ``.capture_s``.
+    the loops.
+
+    On the "lut" route, as ``jax.jit`` compiles the thinning once per
+    shape and static arguments, the passes and every tensor they read
+    lie in a cached entry (``_Thinning``; its docstring lists what it
+    holds and its key).  The box comes from a host read, so its shape
+    and origin's parity are in the key: calls on one mask (the
+    pipeline's repeats) hit, a mask with another box misses.  A call
+    copies its box and d2 in; on a hit every pass is a replay and
+    nothing is captured; a miss captures as above and, at the call's
+    end, each key that ran once.  ``_LUTS.clear()`` drops the entries.
+    The last call's counts are ``skeletonize.wave_passes``,
+    ``.final_passes``, ``.reads``, ``.captures``, ``.replays``,
+    ``.capture_s`` and ``.hit``.
     """
     device = _resolve_device(mask, device)
     full = _as_device(mask, device) != 0
@@ -222,68 +378,37 @@ def skeletonize(mask, max_waves: int = 64, preserve_endpoints: bool = True,
     box = _crop_box(full)
     if box is None:
         return full
-    fg = full[box].contiguous()
-    origin = tuple(s.start for s in box)
+    fg = full[box]
+    shape = tuple(fg.shape)
+    parity = tuple(s.start % 2 for s in box)
     d2 = edt_squared(fg, band=32)
-    subfield = _subfield_index(fg.shape, origin, device)
-    sub_masks = [subfield == sf for sf in range(8)]
-    lut = _device_lut(device) if predicate == "lut" else None
-    level = torch.ones((), dtype=torch.int32, device=device)
-    stalled, it, stop = (torch.zeros_like(level) for _ in range(3))
-    deleted = torch.zeros((), dtype=torch.bool, device=device)
-    max_d2 = torch.zeros((), dtype=torch.float32, device=device)
-    far = torch.full((), 1e12, dtype=torch.float32, device=device)
-
-    def delete_pass(level2):
-        """One peel attempt at the distance bound ``level2``; 8
-        subfields.  Sets ``deleted``: anything deleted."""
-        at_level = d2 <= level2
-        deleted.zero_()
-        for sf in range(8):
-            cand = _subfield_deletions(fg, neighborhood_codes(fg),
-                                       at_level & sub_masks[sf],
-                                       preserve_endpoints, lut)
-            fg.logical_and_(~cand)
-            deleted.logical_or_(cand.any())
-
-    def wave_stop():
-        """Go on while f32(level)^2 <= max fg d2 + 2 and stalled < max."""
-        max_d2.copy_(torch.where(fg, d2, 0.0).max())
-        lf = level.to(torch.float32)
-        stop.copy_(torch.where((lf * lf <= max_d2 + 2.0)
-                               & (stalled < max_waves), -1, 0))
-
-    def wave_step():
-        delete_pass(_level2(level))
-        # stay at this level until stable, then move outward
-        torch.where(deleted, level, level + 1, out=level)
-        stalled.copy_(torch.where(deleted, 0, stalled + 1))
-        wave_stop()
-
-    def final_step():
-        """A cleanup pass at unlimited level; go on while it deleted."""
-        delete_pass(far)
-        it.add_(1)
-        stop.copy_(torch.where(deleted & (it < max_waves), -1, 0))
-
-    loop = (grow_loop.loop_for(device, watch=lambda: list(_LUTS.values()))
-            if lut is not None else grow_loop.HostLoop())
-    with loop.stream():
-        wave_stop()
-        while loop.read(stop) < 0:
-            loop.run("wave", wave_step)
-        if max_waves > 0:
-            loop.run("final", final_step)
-            while loop.read(stop) < 0:
-                loop.run("final", final_step)
-    _count(loop)
     out = torch.zeros_like(full)
-    out[box] = fg
+    if predicate == "labels":   # the call's own buffers, no entry
+        thin = _Thinning(shape, parity, device, max_waves,
+                         preserve_endpoints, None, grow_loop.HostLoop())
+        thin.load(fg, d2)
+        thin.run()
+        _count(thin.loop)
+        out[box] = thin.fg
+        return out
+    lut = _device_lut(device)
+    with _cache.use(device, (shape, parity, max_waves, preserve_endpoints),
+                    lambda: _Thinning(shape, parity, device, max_waves,
+                                      preserve_endpoints, lut)
+                    ) as (thin, hit):
+        thin.load(fg, d2)
+        fg = d2 = None          # the call's copies, no longer read
+        with thin.loop.stream():
+            thin.run()
+            thin.loop.capture_pending()
+        out[box] = thin.fg
+    _count(thin.loop, hit)
     return out
 
 
-def _count(loop):
+def _count(loop, hit=False):
     """``skeletonize``'s counts from the loop its passes ran in."""
+    skeletonize.hit = hit
     skeletonize.wave_passes = loop.runs.get("wave", 0)
     skeletonize.final_passes = loop.runs.get("final", 0)
     skeletonize.reads = loop.reads

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import grow_loop
+
 
 def _gaussian_kernel(sigma: float, radius: int | None = None):
     """Normalised Gaussian taps, radius ceil(3 sigma), as f32."""
@@ -246,6 +248,7 @@ def _apply_chunk(best, volp, start, g, sigma, alpha, beta, bright,
 SLAB_VOXELS = 1 << 26
 
 
+@grow_loop.frees_loop_caches
 def frangi_vesselness(volume, sigmas=(1.0, 2.0, 3.0), alpha=0.5, beta=0.5,
                       gamma=None, bright=True, device=None):
     """Multiscale Frangi tubularity in [0, 1] of the whole volume at
@@ -278,6 +281,7 @@ def frangi_vesselness(volume, sigmas=(1.0, 2.0, 3.0), alpha=0.5, beta=0.5,
     return best
 
 
+@grow_loop.frees_loop_caches
 def frangi_vesselness_chunked(volume, sigmas=(1.0, 2.0, 3.0),
                               alpha=0.5, beta=0.5, gamma=None,
                               bright=True, chunk_z: int = 96,
@@ -533,6 +537,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+@grow_loop.frees_loop_caches
 def frangi_vesselness_streamed(raw, sigmas=(1.0, 2.0, 3.0),
                                alpha=0.5, beta=0.5, gamma=None,
                                bright=True,

@@ -70,8 +70,9 @@ from ..ops.region_grow import (DEFAULT_H, DEFAULT_ITER_MAX,
 from ..ops.region_grow_fused import (NUM_BINS, fused_sweep_counts,
                                      pack_sign_words)
 from ..ops.simple_point import neighborhood_codes
-from ..ops.thinning import (_LUTS, _device_lut, _level2,
-                            _subfield_deletions, _subfield_index)
+from ..ops.thinning import _Thinning as _BoxThinning
+from ..ops.thinning import (_clear_hooks, _device_lut, _subfield_deletions,
+                            _subfield_index, _tables)
 from ..ops.vesselness import (_norm, _sorted_eigvals, _tubularity,
                               hessian_at_scale)
 from .halo import (Padded, ShardedVolume, halo_faces, pad_halos,
@@ -104,6 +105,7 @@ def _reduce(parts, op, device):
     return op(torch.stack([p.to(device) for p in parts]), dim=0)
 
 
+@grow_loop.frees_loop_caches
 def frangi_vesselness(vol: ShardedVolume, sigmas=(1.0, 2.0, 3.0)):
     """``ops/vesselness.frangi_vesselness`` of a sharded volume (its
     defaults: alpha = beta = 0.5, gamma from the data, bright vessels),
@@ -130,6 +132,7 @@ def frangi_vesselness(vol: ShardedVolume, sigmas=(1.0, 2.0, 3.0)):
     return best
 
 
+@grow_loop.frees_loop_caches
 def edt_squared(mask: ShardedVolume, band: int = 32):
     """``ops/edt.edt_squared`` (banded, unit sampling) of a sharded mask,
     bit-equal to the whole volume's: each block padded with ``band``
@@ -172,6 +175,145 @@ def histogram_inputs(bins_pad, seg: ShardedVolume):
     return out
 
 
+# the sharded grows' cache: per device and thread, at most this many
+# entries; an entry holds the volume's padded bins and two padded
+# segmentations between calls, so one
+_GROW_CACHE_SIZE = 1
+_grow_cache = grow_loop.LoopCache(_GROW_CACHE_SIZE)
+
+
+def clear_grow_cache(device=None):
+    """Drop this thread's cached sharded grows on ``device`` (or on every
+    device)."""
+    _grow_cache.clear(device)
+
+
+def grow_cache_info():
+    """The sharded grows' cache: hits, misses, evictions, entries by
+    device."""
+    return _grow_cache.info()
+
+
+def _meta(vol: ShardedVolume):
+    """``vol`` with storage-less blocks of its blocks' shapes (what a
+    ``Padded``'s boxes and crop read of its source)."""
+    return vol.map(lambda b: torch.empty(b.shape, dtype=b.dtype,
+                                         device="meta"))
+
+
+def _padded_like(pad: Padded, source: ShardedVolume):
+    blocks = np.empty(pad.blocks.shape, dtype=object)
+    for i in np.ndindex(pad.blocks.shape):
+        blocks[i] = torch.empty_like(pad.blocks[i])
+    return Padded(blocks, pad.lo, pad.hi, source)
+
+
+class _ShardedGrow(grow_loop.CachedGrow):
+    """A cached sharded grow, the counterpart of one executable in the
+    JAX jit's cache: each block's padded bins, the two padded copies of
+    the segmentation a sweep goes between (A -> B, B -> A) with their
+    halo faces (views, made once), the blocks' windows, the dh rows (one
+    buffer per device), and on the first block's device the Gaussian
+    kernel ``K``, the volume's and the region's histograms, the count,
+    the iteration count and ``stop``; and the two steps, which read
+    nothing else.  Its key: the mesh's devices, each block's padded
+    shape, halo widths and own shape, ``max_segment_size`` and
+    ``iter_max`` (the steps take them as constants)."""
+
+    def __init__(self, bins_pad: Padded, src: Padded, max_segment_size,
+                 iter_max):
+        idxs = src.source.indices()
+        dev0 = _first(src.source).device
+        super().__init__(dev0)
+        source = _meta(src.source)
+        self.idxs, self.dev0 = idxs, dev0
+        self.bins = {i: torch.empty_like(bins_pad.blocks[i]) for i in idxs}
+        self.src = _padded_like(src, source)
+        self.dst = _padded_like(src, source)
+        by_dev = {}
+        for i in idxs:
+            by_dev.setdefault(src.blocks[i].device, []).append(i)
+        # the dh slots of the blocks on each device are rows of one
+        # buffer, zeroed once per sweep
+        self.dh_buf = {d: torch.zeros((len(ix), 2, NUM_BINS),
+                                      dtype=torch.int32, device=d)
+                       for d, ix in by_dev.items()}
+        self.dh_of = {i: self.dh_buf[d][k] for d, ix in by_dev.items()
+                      for k, i in enumerate(ix)}
+        self.windows = {i: self.src.window(i) for i in idxs}
+        self.src_faces = halo_faces(self.src)
+        self.dst_faces = halo_faces(self.dst)
+        self.K = torch.empty((NUM_BINS, NUM_BINS), dtype=torch.float32,
+                             device=dev0)
+        self.hist_all = torch.empty(NUM_BINS, dtype=torch.float32,
+                                    device=dev0)
+        self.inner = torch.empty(NUM_BINS, dtype=torch.int32, device=dev0)
+        self.count, self.it, self.stop = (torch.zeros((), dtype=torch.int32,
+                                                      device=dev0)
+                                          for _ in range(3))
+        self.max_segment_size, self.iter_max = max_segment_size, iter_max
+        self.steps = [lambda: self.step(self.src, self.dst, self.dst_faces),
+                      lambda: self.step(self.dst, self.src, self.src_faces)]
+
+    def load(self, bins_pad: Padded, src: Padded, K, hist_all, inner,
+             count):
+        """Copy a call's padded bins and seed (into both copies), kernel,
+        histograms and count in; ``stop`` from the count."""
+        for i in self.idxs:
+            self.bins[i].copy_(bins_pad.blocks[i])
+            self.src.blocks[i].copy_(src.blocks[i])
+            self.dst.blocks[i].copy_(src.blocks[i])
+        self.K.copy_(K)
+        self.hist_all.copy_(hist_all)
+        self.inner.copy_(inner)
+        self.count.copy_(count)
+        self.it.zero_()
+        self.stop.copy_(torch.where(self.count >= self.max_segment_size,
+                                    1, -1))
+
+    def step(self, a, b, b_faces):
+        """One sweep: K2 on every block of ``a`` into ``b``'s windows,
+        ``b``'s halo faces refreshed, the counts summed on ``dev0``."""
+        inner, count, it, dev0 = self.inner, self.count, self.it, self.dev0
+        inner_f = inner.to(torch.float32)
+        words = pack_sign_words(_decision_table(self.K, inner_f,
+                                                self.hist_all - inner_f))
+        words_on = {d: words.to(d) for d in self.dh_buf}
+        for buf in self.dh_buf.values():
+            buf.zero_()
+        for i in self.idxs:
+            t = a.blocks[i]
+            fused_sweep_counts(t, self.bins[i], words_on[t.device],
+                               window=self.windows[i], out=b.blocks[i],
+                               dh=self.dh_of[i])
+        refresh_halos(b, b_faces)
+        parts = [buf.sum(dim=0) for buf in self.dh_buf.values()]
+        dh = parts[0] if len(parts) == 1 else _reduce(parts, torch.sum,
+                                                      dev0)
+        n_pos, n_neg = dh.sum(dim=1, dtype=torch.int32)
+        converged = (n_pos + n_neg) == 0
+        inner.add_(dh[0]).sub_(dh[1])
+        count.add_(n_pos).sub_(n_neg)
+        it.add_((~converged).to(torch.int32))
+        self.stop.copy_(_stop_code(converged,
+                                   count >= self.max_segment_size, it,
+                                   self.iter_max))
+
+
+def _grow_key(bins_pad: Padded, src: Padded, max_segment_size, iter_max):
+    """The mesh's devices, each block's padded shape, halo widths and own
+    shape, ``max_segment_size`` and ``iter_max``."""
+    vol = src.source
+    return (tuple(str(d) for d in vol.mesh.devices.reshape(-1)),
+            tuple((i, tuple(src.blocks[i].shape),
+                   tuple(bins_pad.blocks[i].shape),
+                   tuple(int(x) for x in src.lo[i]),
+                   tuple(int(x) for x in src.hi[i]),
+                   tuple(vol.blocks[i].shape)) for i in vol.indices()),
+            max_segment_size, iter_max)
+
+
+@grow_loop.frees_loop_caches
 def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
                 max_segment_size: int = DEFAULT_MAX_SEGMENT_SIZE,
                 iter_max: int = DEFAULT_ITER_MAX):
@@ -187,7 +329,16 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
     and run by one while-graph launch; ``stop`` read min(sweeps, 2) + 1
     times) and to ``grow_loop.host_loop`` on the "host" route (``stop``
     read once before the loop and once per sweep); the reads are counted
-    in ``grow_loop.read_stop.reads``.  The last call's route is
+    in ``grow_loop.read_stop.reads``.
+
+    On the "graph" route, as ``jax.jit`` compiles the sharded loop once
+    per shape, the steps and every tensor they read lie in a cached
+    entry (``_ShardedGrow``; its docstring lists what it holds and its
+    key; the loop route, ``grow_loop.drive``, is in the key too); a call
+    copies its padded bins, seed, kernel, histograms and count in, and a
+    grow after the entry's first one of two sweeps or more runs sweep 1
+    eagerly and launches the entry's while graph, capturing nothing.
+    The result's tensors are new.  The last call's route is
     ``region_grow.route``."""
     data = data.map(lambda b: b.to(torch.float32))
     idxs = data.indices()
@@ -207,70 +358,127 @@ def region_grow(data: ShardedVolume, seed_mask: ShardedVolume,
     inner = _reduce(inner_parts, torch.sum, dev0).to(torch.int32)
     count = _reduce([torch.sum(seg.blocks[i], dtype=torch.int32)
                      for i in idxs], torch.sum, dev0).to(torch.int32)
-
-    # two padded copies, made once: each sweep reads one and writes the
-    # other's windows; the dh slots of the blocks on each device are
-    # rows of one buffer, zeroed once per sweep
     src = pad_halos(seg, 1)
-    dst = Padded(np.empty(seg.grid, dtype=object), src.lo, src.hi,
-                 src.source)
-    by_dev = {}
-    for i in idxs:
-        dst.blocks[i] = src.blocks[i].clone()
-        by_dev.setdefault(src.blocks[i].device, []).append(i)
-    dh_buf = {d: torch.zeros((len(ix), 2, NUM_BINS), dtype=torch.int32,
-                             device=d) for d, ix in by_dev.items()}
-    dh_of = {i: dh_buf[d][k] for d, ix in by_dev.items()
-             for k, i in enumerate(ix)}
-    windows = {i: src.window(i) for i in idxs}
-    src_faces, dst_faces = halo_faces(src), halo_faces(dst)
+    inputs = (bins_pad, src, K, hist_all, inner, count)
 
-    # the loop's state, on the first block's device, written in place
-    it = torch.zeros((), dtype=torch.int32, device=dev0)
-    stop = torch.where(count >= max_segment_size, 1, -1).to(torch.int32)
-
-    def step(a, b, b_faces):
-        """One sweep: K2 on every block of ``a`` into ``b``'s windows,
-        ``b``'s halo faces refreshed, the counts summed on ``dev0``."""
-        inner_f = inner.to(torch.float32)
-        words = pack_sign_words(_decision_table(K, inner_f,
-                                                hist_all - inner_f))
-        words_on = {d: words.to(d) for d in dh_buf}
-        for buf in dh_buf.values():
-            buf.zero_()
-        for i in idxs:
-            t = a.blocks[i]
-            fused_sweep_counts(t, bins_pad.blocks[i], words_on[t.device],
-                               window=windows[i], out=b.blocks[i],
-                               dh=dh_of[i])
-        refresh_halos(b, b_faces)
-        parts = [buf.sum(dim=0) for buf in dh_buf.values()]
-        dh = parts[0] if len(parts) == 1 else _reduce(parts, torch.sum,
-                                                      dev0)
-        n_pos, n_neg = dh.sum(dim=1, dtype=torch.int32)
-        converged = (n_pos + n_neg) == 0
-        inner.add_(dh[0]).sub_(dh[1])
-        count.add_(n_pos).sub_(n_neg)
-        it.add_((~converged).to(torch.int32))
-        stop.copy_(_stop_code(converged, count >= max_segment_size, it,
-                              iter_max))
-
-    steps = [lambda: step(src, dst, dst_faces),
-             lambda: step(dst, src, src_faces)]
     region_grow.route = loop_route(data.mesh.distinct_devices())
     if region_grow.route == "graph":
-        n = grow_loop.drive(steps, stop)
-    else:
-        n = grow_loop.host_loop(steps, stop)
-    grown = (src, dst)[n % 2].crop().map(lambda b: b != 0)
+        with _grow_cache.use(dev0, (grow_loop.drive,) + _grow_key(
+                bins_pad, src, max_segment_size, iter_max),
+                lambda: _ShardedGrow(bins_pad, src, max_segment_size,
+                                     iter_max)) as (grow, _):
+            grow.load(*inputs)
+            del inputs, bins_pad, src
+            n = grow_loop.drive(grow.steps, grow.stop, grow)
+            return _grown(grow, n)
+    grow = _ShardedGrow(bins_pad, src, max_segment_size, iter_max)
+    grow.load(*inputs)
+    return _grown(grow, grow_loop.host_loop(grow.steps, grow.stop))
+
+
+def _grown(grow: _ShardedGrow, n):
+    """The result of ``grow`` after ``n`` sweeps, in new tensors."""
+    grown = (grow.src, grow.dst)[n % 2].crop().map(lambda b: b != 0)
     return RegionGrowResult(segmented_map=grown, active_map=None,
-                            iterations=it, segmented_count=count,
-                            stop_reason=stop)
+                            iterations=grow.it.clone(),
+                            segmented_count=grow.count.clone(),
+                            stop_reason=grow.stop.clone())
 
 
 region_grow.route = None
 
 
+# the sharded thinnings' cache: per device and thread, at most this
+# many entries.  An entry holds the whole mask's blocks (fg, an f32 d2
+# and eight bool sub-masks: at Speck scale several GB) between calls,
+# and the pipeline repeats a thinning of one mask, so one.
+_CACHE_SIZE = 1
+_cache = grow_loop.LoopCache(_CACHE_SIZE)
+_clear_hooks.append(_cache.clear)       # _LUTS.clear() drops the entries
+
+
+def clear_skeletonize_cache(device=None):
+    """Drop this thread's cached sharded thinnings on ``device`` (or on
+    every device)."""
+    _cache.clear(device)
+
+
+def skeletonize_cache_info():
+    """The sharded thinnings' cache: hits, misses, evictions, entries by
+    device."""
+    return _cache.info()
+
+
+class _Thinning(_BoxThinning):
+    """A cached sharded thinning (the "graph" route), the counterpart of
+    one executable in the JAX jit's cache: the single device's entry
+    (ops/thinning.py) over blocks, every block's foreground and band-32
+    d2, its eight parity sub-masks (global parities, from its offset)
+    and its table, the loop's scalars on the first block's device, and
+    the two passes, "wave" and "final", which read nothing else.  Its
+    key: the mesh's devices, each block's shape and offset parity, and
+    ``max_waves`` (the passes take it as a constant; endpoints are
+    kept)."""
+
+    def __init__(self, fg: ShardedVolume, max_waves, loop=None):
+        idxs = fg.indices()
+        dev0 = _first(fg).device
+        grow_loop.CachedLoop.__init__(self, dev0, watch=_tables, loop=loop)
+        self.scalars(dev0, max_waves, True)
+        self.fg = fg.map(torch.empty_like)
+        self.d2 = fg.map(lambda b: torch.empty(b.shape, dtype=torch.float32,
+                                               device=b.device))
+        self.sub_masks, self.luts = {}, {}
+        for i in idxs:
+            dev = fg.blocks[i].device
+            sub = _subfield_index(fg.blocks[i].shape, fg.offset(i), dev)
+            self.sub_masks[i] = [sub == sf for sf in range(8)]
+            self.luts[i] = _lut_for(dev)
+        self.idxs, self.dev0 = idxs, dev0
+
+    def load(self, fg: ShardedVolume, d2: ShardedVolume):
+        """Copy a call's foreground and d2 in; reset the scalars."""
+        for i in self.idxs:
+            self.fg.blocks[i].copy_(fg.blocks[i])
+            self.d2.blocks[i].copy_(d2.blocks[i])
+        self.reset()
+
+    def delete_pass(self, level2):
+        """One peel attempt at the distance bound ``level2``; 8
+        subfields, each after a halo-1 exchange.  Sets ``deleted``:
+        anything deleted."""
+        fg, d2, idxs, dev0 = self.fg, self.d2, self.idxs, self.dev0
+        at_level = {i: d2.blocks[i] <= level2.to(d2.blocks[i].device)
+                    for i in idxs}
+        self.deleted.zero_()
+        for sf in range(8):
+            pad = pad_halos(fg, 1)
+            for i in idxs:
+                own = fg.blocks[i]
+                cand = _subfield_deletions(
+                    own, neighborhood_codes(pad.blocks[i])[pad.box(i)],
+                    at_level[i] & self.sub_masks[i][sf], True,
+                    self.luts[i])
+                own.logical_and_(~cand)
+                self.deleted.logical_or_(cand.any().to(dev0))
+
+    def fg_max_d2(self):
+        """The largest d2 of a foreground voxel over the blocks."""
+        fg, d2 = self.fg, self.d2
+        return _reduce([torch.where(fg.blocks[i], d2.blocks[i], 0.0).max()
+                        for i in self.idxs], torch.max, self.dev0).values
+
+
+def _key(fg: ShardedVolume, max_waves):
+    """The mesh's devices, each block's shape and offset parity, and
+    ``max_waves``."""
+    return (tuple(str(d) for d in fg.mesh.devices.reshape(-1)),
+            tuple((i, tuple(fg.blocks[i].shape),
+                   tuple(o % 2 for o in fg.offset(i)))
+                  for i in fg.indices()), max_waves)
+
+
+@grow_loop.frees_loop_caches
 def skeletonize(mask: ShardedVolume, max_waves: int = 64):
     """``ops/thinning.skeletonize`` of a sharded mask (endpoints kept), as
     a sharded bool volume, bit-equal to the whole volume's skeleton.  The
@@ -288,86 +496,43 @@ def skeletonize(mask: ShardedVolume, max_waves: int = 64):
     ``torch.nonzero``, or blocks on several cards).  The host reads
     ``stop`` once before the wave loop and once after each pass: 1 +
     wave passes + final passes reads (an empty mask returns after the
-    first).  The last call's counts are ``skeletonize.route``,
-    ``.wave_passes``, ``.final_passes``, ``.reads``, ``.captures``,
-    ``.replays`` and ``.capture_s``."""
+    first).
+
+    On the "graph" route, as ``jax.jit`` compiles the sharded loops once
+    per shape, the passes and every tensor they read lie in a cached
+    entry (``_Thinning``; its docstring lists what it holds and its
+    key); a call copies its foreground and its d2 in, and on a hit every
+    pass is a replay and nothing is captured.  ``_LUTS.clear()`` drops
+    the entries.  The result is a new volume.  The last call's counts
+    are ``skeletonize.route``, ``.wave_passes``, ``.final_passes``,
+    ``.reads``, ``.captures``, ``.replays``, ``.capture_s`` and
+    ``.hit``."""
     fg = mask.map(lambda b: b != 0)
-    idxs = fg.indices()
-    dev0 = _first(fg).device
     route = loop_route(mask.mesh.distinct_devices())
     _count(grow_loop.HostLoop(), route)
     d2 = edt_squared(fg, band=32)
-    sub_masks, luts = {}, {}
-    for i in idxs:
-        dev = fg.blocks[i].device
-        sub = _subfield_index(fg.blocks[i].shape, fg.offset(i), dev)
-        sub_masks[i] = [sub == sf for sf in range(8)]
-        luts[i] = _lut_for(dev)
-    level = torch.ones((), dtype=torch.int32, device=dev0)
-    stalled, it, stop = (torch.zeros_like(level) for _ in range(3))
-    deleted = torch.zeros((), dtype=torch.bool, device=dev0)
-    max_d2 = torch.zeros((), dtype=torch.float32, device=dev0)
-    far = torch.full((), 1e12, dtype=torch.float32, device=dev0)
-
-    def delete_pass(level2):
-        """One peel attempt at the distance bound ``level2``; 8
-        subfields.  Sets ``deleted``: anything deleted."""
-        at_level = {i: d2.blocks[i] <= level2.to(d2.blocks[i].device)
-                    for i in idxs}
-        deleted.zero_()
-        for sf in range(8):
-            pad = pad_halos(fg, 1)
-            for i in idxs:
-                own = fg.blocks[i]
-                cand = _subfield_deletions(
-                    own, neighborhood_codes(pad.blocks[i])[pad.box(i)],
-                    at_level[i] & sub_masks[i][sf], True, luts[i])
-                own.logical_and_(~cand)
-                deleted.logical_or_(cand.any().to(dev0))
-
-    def wave_stop():
-        """Go on while f32(level)^2 <= max fg d2 + 2 and stalled < max."""
-        max_d2.copy_(_reduce([torch.where(fg.blocks[i], d2.blocks[i],
-                                          0.0).max() for i in idxs],
-                             torch.max, dev0).values)
-        lf = level.to(torch.float32)
-        stop.copy_(torch.where((lf * lf <= max_d2 + 2.0)
-                               & (stalled < max_waves), -1, 0))
-
-    def wave_step():
-        delete_pass(_level2(level))
-        # stay at this level until stable, then move outward
-        torch.where(deleted, level, level + 1, out=level)
-        stalled.copy_(torch.where(deleted, 0, stalled + 1))
-        wave_stop()
-
-    def final_step():
-        """A cleanup pass at unlimited level; go on while it deleted."""
-        delete_pass(far)
-        it.add_(1)
-        stop.copy_(torch.where(deleted & (it < max_waves), -1, 0))
-
-    loop = (grow_loop.loop_for(dev0, watch=lambda: list(_LUTS.values()))
-            if route == "graph" else grow_loop.HostLoop())
-    with loop.stream():
-        wave_stop()
-        stop.copy_(torch.where(max_d2 == 0, 1, stop))  # 1: no foreground
-        go = loop.read(stop)
-        if go != 1:
-            while go < 0:
-                loop.run("wave", wave_step)
-                go = loop.read(stop)
-            if max_waves > 0:
-                loop.run("final", final_step)
-                while loop.read(stop) < 0:
-                    loop.run("final", final_step)
-    _count(loop, route)
-    return fg
+    if route != "graph":        # the call's own buffers, no entry
+        thin = _Thinning(fg, max_waves, grow_loop.HostLoop())
+        thin.load(fg, d2)
+        thin.run()
+        _count(thin.loop, route)
+        return thin.fg
+    with _cache.use(_first(fg).device, _key(fg, max_waves),
+                    lambda: _Thinning(fg, max_waves)) as (thin, hit):
+        thin.load(fg, d2)
+        fg = d2 = None          # the call's copies, no longer read
+        with thin.loop.stream():
+            thin.run()
+            thin.loop.capture_pending()
+        out = thin.fg.map(thin.out)
+    _count(thin.loop, route, hit)
+    return out
 
 
-def _count(loop, route):
+def _count(loop, route, hit=False):
     """``skeletonize``'s counts from the loop its passes ran in."""
     skeletonize.route = route
+    skeletonize.hit = hit
     skeletonize.wave_passes = loop.runs.get("wave", 0)
     skeletonize.final_passes = loop.runs.get("final", 0)
     skeletonize.reads = loop.reads

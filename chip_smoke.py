@@ -78,7 +78,14 @@ Phases, each printing its own lines:
                one per pass plus one); one
                (iterations, count) and one mask for auto, xla and
                frontier; graph and eager times, host reads per grow, and
-               one traced run of each grower for the device's idle share;
+               one traced run of each grower for the device's idle share.
+               Each grower's loop cache (ops/grow_loop.LoopCache) is
+               emptied first: the first graph-driven grow is cold (it
+               captures the steps and builds the while graph), the timed
+               one warm (a hit: nothing captured, the entry's while graph
+               launched again), and a grow on the mirrored tube (new data
+               of the same shapes) is a hit too, equal to its eager loop;
+               cold and warm seconds;
   9. value_map_512 — the reference's interface, region_grow_value_map,
                on the tube with the excluded slab as state 4: one warm-up
                and three timed runs (K6a + K7 per iteration, the value map
@@ -105,16 +112,21 @@ Phases, each printing its own lines:
                voxel crop), and the full-size LUT thinning, driven by
                captured graphs (a wave and a final pass), equals the eager
                loop and the pipeline's skeleton bit for bit, with the same
-               passes, 1 + passes host reads, one graph per loop that ran
-               twice and a replay per later pass (wall, busy, idle traced
+               passes, 1 + passes host reads; cold (the loops' caches
+               emptied: a miss), one graph per loop that ran, a replay per
+               pass after a loop's first; then warm on the mask with
+               voxels cleared inside its box (new data of the cache's
+               key): a hit, no graph captured, every pass replayed, equal
+               to its eager loop (cold and warm wall, busy, idle traced
                and untraced), (d) the full-size skeleton lies in the mask,
                has no deletable voxel left and as many 26-components, (e)
                the simple-point table built on the card equals the native
                predicate (2^20 sampled codes, and the native table on all
                2^26), (f) connected_components at 64 rounds and to
                convergence, each graph-driven and equal to the eager loop
-               (one host read per round, one graph, rounds - 1 replays),
-               gives the native partition,
+               (one host read per round; cold: one graph, rounds - 1
+               replays; warm on new data of the shape: none, every round
+               replayed), gives the native partition,
                (g) frangi_vesselness_chunked launches K1 once per slab and
                scale, within K1's bound of its twin and, on interior rows,
                of frangi_vesselness.
@@ -158,9 +170,14 @@ Phases, each printing its own lines:
                K1-K7 launches and region_grow_512's while-graph counts
                (host reads per iteration computed); the thinning
                bit-equal and equal to the single-device skeleton, 1 +
-               passes host reads, each key captured on its second pass;
-               captures, replays, capture seconds, and each one's busy
-               time and idle share, traced and untraced.
+               passes host reads, cold (the caches emptied) each key
+               captured once, warm on the mask with voxels cleared inside
+               its box a hit that captures nothing and replays every
+               pass, equal to its eager loop; captures, replays, capture
+               seconds, cold and warm seconds, and each one's busy time
+               and idle share, traced and untraced.  The sharded runs'
+               cached loop entries are dropped before the single-device
+               composition.
      dryrun_multichip — flagship.dryrun_multichip(4) and (8) on the card.
      Speck scale, 880x880x640 (BASELINE.md config 5), each phase's data
      made on the host from seeds and timed apart, each phase's tensors
@@ -198,10 +215,11 @@ Phases, each printing its own lines:
                eager loops as there, the whole-volume
                vesselness's peak memory with its per-voxel passes in one
                slab and in slabs (bit-equal), whether the ground truth is
-               feasible; the graph pool (ops/grow_loop.graph_pool):
-               memory reserved after each of five single-device and
-               five sharded thinnings of its mask, the fifth within 5%
-               of the second.
+               feasible; the graph pool (ops/grow_loop.graph_pool) and
+               the thinnings' caches: the caches emptied, memory reserved
+               after each of five single-device and five sharded
+               thinnings of its mask, the fifth within 5% of the second,
+               the first capturing its graphs and the other four none.
  Every flow solve from here on, and pipeline_512's and speck_pipeline's
  flow stage, runs driven by captured CUDA graphs (flow/solvers.py on
  ops/grow_loop.py): each that ran a step more than once must have
@@ -242,8 +260,11 @@ Phases, each printing its own lines:
                graphs its solves captured and replayed, finite outputs,
                the solver drivers equal to the port on the CPU within
                1e-9, pickles written and read back; distribute's
-               Gauss-Newton fit graph-driven (40 steps: 1 capture, 39
-               replays) and within 1e-9 of its eager loop on the card;
+               Gauss-Newton fit graph-driven, its cache emptied first (40
+               steps: 1 capture, 39 replays) and within 1e-9 of its eager
+               loop on the card, then at 0.95 x the targets (new data of
+               the same shapes) a hit: no capture, 40 replays, within
+               1e-9 of its eager loop; cold and warm seconds;
                the four experiment drivers (flow/experiments.py) twice
                on the card, the second call capturing no graph, and held
                to the CPU within 1e-9 (GBMTest3: its errors).
@@ -799,24 +820,41 @@ def read_counts():
     return {name: fn.launches for name, fn in counted().items()}
 
 
+def _cache_hits():
+    """The hits of every device loop's cache (ops/grow_loop.LoopCache)."""
+    return sum(c.hits for c in _ops("grow_loop")._caches)
+
+
+_GROW_HITS = [0]            # the caches' hits at the last reset
+
+
 def reset_loop_counts():
     loop = _ops("grow_loop")
     loop.read_stop.reads = 0
     loop.graph_loop.captures = loop.graph_loop.replays = 0
     loop.graph_loop.launches = 0
     loop.graph_loop.capture_s = 0.0
+    _GROW_HITS[0] = _cache_hits()
 
 
 def loop_counts():
     """The growers' host reads of ``stop``, graphs captured, steps run
     from them (replays), while graphs launched, seconds spent capturing
-    and building the while graphs."""
+    and building the while graphs, hits in their caches since the last
+    ``reset_loop_counts()``."""
     loop = _ops("grow_loop")
     return {"reads": loop.read_stop.reads,
             "captures": loop.graph_loop.captures,
             "replays": loop.graph_loop.replays,
             "launches": loop.graph_loop.launches,
-            "capture_s": loop.graph_loop.capture_s}
+            "capture_s": loop.graph_loop.capture_s,
+            "hits": _cache_hits() - _GROW_HITS[0]}
+
+
+def clear_loop_caches():
+    """Empty every device loop's cache but the flow solves' (the next
+    call of each is cold: a miss that captures)."""
+    _ops("grow_loop").clear_loop_caches()
 
 
 def _host_loop_for(*args, **kw):
@@ -842,11 +880,15 @@ def eager_loop():
         loop.drive, loop.loop_for = drive, loop_for
 
 
-def _graph_loop_counts(*passes):
-    """(captures, replays) of a GraphLoop whose keys ran ``passes``
-    times each: a key's first run eager, its second captured (and
-    replayed), every later one replayed."""
-    return (sum(n >= 2 for n in passes),
+def _graph_loop_counts(*passes, hit=False):
+    """(captures, replays) of a cached loop (ops/grow_loop.LoopCache)
+    whose keys ran ``passes`` times each: cold (a miss), a key's first
+    run eager, its second captured (and replayed), every later one
+    replayed, and a key that ran once captured at the call's end; warm
+    (a hit), every run a replay."""
+    if hit:
+        return 0, sum(passes)
+    return (sum(n >= 1 for n in passes),
             sum(max(n - 1, 0) for n in passes))
 
 
@@ -855,65 +897,119 @@ def _loop_fn_counts(fn, keys):
     keeps of its last call: ``keys`` (passes) and the loop's own."""
     return {**{k: getattr(fn, k) for k in keys},
             **{k: getattr(fn, k) for k in ("reads", "captures", "replays",
-                                           "capture_s")}}
+                                           "capture_s", "hit")}}
 
 
-def _graph_vs_eager(phase, label, fn, counts_of, passes_of, reads_of):
-    """``fn()`` on the card driven by captured graphs and in the eager
-    loop (``eager_loop()``): the same bits (a tensor), the same passes
-    and host reads (``reads_of(counts)``), and the captures and replays
-    GraphLoop makes of those passes (``passes_of(counts)``, by key).
-    -> (result, counts, graph s, eager s)."""
+def _graph_vs_eager(phase, label, fn, counts_of, passes_of, reads_of,
+                    fn_b=None):
+    """``fn()`` on the card driven by captured graphs, its loop's cache
+    emptied first (a cold call: a miss), and in the eager loop
+    (``eager_loop()``): the same bits (a tensor), the same passes and
+    host reads (``reads_of(counts)``), and the captures and replays a
+    cold call makes of those passes (``passes_of(counts)``, by key).
+    Then ``fn_b()``, the loop on new data of the same shapes: a hit that
+    captures nothing and replays every pass, bit-equal to its own eager
+    loop with its passes and reads.  -> (result, counts, graph s, eager
+    s, {"cold_s", "warm_same_s": fn() again, a hit, "warm_s": fn_b(),
+    "warm": its counts})."""
     import torch
 
-    def run():
+    def run(f):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn()
+        out = f()
         torch.cuda.synchronize()
         return out, counts_of(), time.perf_counter() - t0
 
-    out, c, secs = run()
+    def check(tag, c, ec, same, hit):
+        passes = passes_of(c)
+        captures, replays = _graph_loop_counts(*passes, hit=hit)
+        ok = (same and c["hit"] == hit and passes == passes_of(ec)
+              and c["reads"] == ec["reads"] == reads_of(c)
+              and (c["captures"], c["replays"]) == (captures, replays)
+              and ec["captures"] == ec["replays"] == 0
+              and (max(passes) < 2 or c["replays"] > 0))
+        log(phase, f"{label}{tag}: passes {passes} (eager "
+            f"{passes_of(ec)}), host reads {c['reads']} (eager "
+            f"{ec['reads']}, expected {reads_of(c)}), cache hit "
+            f"{c['hit']}, graphs captured {c['captures']} in "
+            f"{c['capture_s']:.4f} s (expected {captures}), replays "
+            f"{c['replays']} (expected {replays}); bit-equal {same}")
+        if not ok:
+            raise SystemExit(f"{phase} {label}{tag}: the graph-driven run "
+                             f"{c} against the eager loop {ec}, equal "
+                             f"{same}")
+
+    clear_loop_caches()
+    out, c, secs = run(fn)
     with eager_loop():
-        e_out, ec, e_secs = run()
-    passes = passes_of(c)
-    captures, replays = _graph_loop_counts(*passes)
-    same = torch.equal(out, e_out)
-    ok = (same and passes == passes_of(ec) and c["reads"] == ec["reads"]
-          == reads_of(c) and (c["captures"], c["replays"])
-          == (captures, replays) and ec["captures"] == ec["replays"] == 0
-          and (max(passes) < 2 or c["replays"] > 0))
-    log(phase, f"{label}: graph-driven {secs:.4f} s, eager loop "
-        f"{e_secs:.4f} s; passes {passes} (eager {passes_of(ec)}), host "
-        f"reads {c['reads']} (eager {ec['reads']}, expected "
-        f"{reads_of(c)}), graphs captured {c['captures']} in "
-        f"{c['capture_s']:.4f} s (expected {captures}), replays "
-        f"{c['replays']} (expected {replays}); bit-equal {same}")
-    if not ok:
-        raise SystemExit(f"{phase} {label}: the graph-driven run {c} "
-                         f"against the eager loop {ec}, equal {same}")
-    return out, c, secs, e_secs
+        e_out, ec, e_secs = run(fn)
+    again, ca, warm_s = run(fn)         # warm, the same data
+    log(phase, f"{label}: graph-driven {secs:.4f} s cold, {warm_s:.4f} s "
+        f"warm (the same data: cache hit {ca['hit']}, {ca['captures']} "
+        f"captures), eager loop {e_secs:.4f} s")
+    check("", c, ec, torch.equal(out, e_out), False)
+    if not (torch.equal(again, out) and ca["hit"] and ca["captures"] == 0):
+        raise SystemExit(f"{phase} {label}: the warm call {ca} differs")
+    warm = {"cold_s": secs, "warm_same_s": warm_s}
+    if fn_b is not None:
+        out_b, cb, warm["warm_s"] = run(fn_b)
+        with eager_loop():
+            e_out_b, ecb, _ = run(fn_b)
+        warm["warm"] = cb
+        log(phase, f"{label}, new data of its shapes: graph-driven "
+            f"{warm['warm_s']:.4f} s (warm), against {secs:.4f} s cold")
+        check(", new data (warm)", cb, ecb, torch.equal(out_b, e_out_b)
+              and not torch.equal(out_b, out), True)
+    return out, c, secs, e_secs, warm
+
+
+def _holes(mask, seed=5, p=0.02):
+    """``mask`` with a share ``p`` of its voxels cleared, only where each
+    coordinate lies two or more planes inside the mask's bounding box:
+    new data with the same box (the device thinning's key), and the same
+    shape."""
+    import torch
+
+    nz = [torch.nonzero(mask.any(dim=tuple(b for b in range(3) if b != a)))
+          for a in range(3)]
+    inside = torch.ones_like(mask, dtype=torch.bool)
+    for a, idx in enumerate(nz):
+        lo, hi = int(idx.min()) + 2, int(idx.max()) - 1
+        keep = torch.zeros(mask.shape[a], dtype=torch.bool,
+                           device=mask.device)
+        keep[lo:max(hi, lo)] = True
+        inside &= keep.reshape([-1 if b == a else 1 for b in range(3)])
+    gen = torch.Generator(device=mask.device).manual_seed(seed)
+    drop = torch.rand(mask.shape, generator=gen, device=mask.device) < p
+    return mask & ~(drop & inside)
 
 
 def thin_graph_vs_eager(phase, label, mask, **kw):
     """``skeletonize(mask, **kw)`` (the lut route) through
-    ``_graph_vs_eager``: reads = 1 + wave passes + final passes."""
+    ``_graph_vs_eager``, with new data of its box (``_holes(mask)``):
+    reads = 1 + wave passes + final passes."""
     fn = _ops("thinning").skeletonize
+    mask_b = _holes(mask != 0)
     return _graph_vs_eager(
         phase, label, lambda: fn(mask, **kw),
         lambda: _loop_fn_counts(fn, ("wave_passes", "final_passes")),
         lambda c: (c["wave_passes"], c["final_passes"]),
-        lambda c: 1 + c["wave_passes"] + c["final_passes"])
+        lambda c: 1 + c["wave_passes"] + c["final_passes"],
+        lambda: fn(mask_b, **kw))
 
 
 def cc_graph_vs_eager(phase, label, mask, **kw):
-    """``connected_components(mask, **kw)`` through ``_graph_vs_eager``:
-    one host read per round."""
+    """``connected_components(mask, **kw)`` through ``_graph_vs_eager``,
+    with new data of its shape (``_holes(mask)``): one host read per
+    round."""
     fn = _ops("cc").connected_components
+    mask_b = _holes(mask != 0)
     return _graph_vs_eager(
         phase, label, lambda: fn(mask, **kw),
         lambda: _loop_fn_counts(fn, ("rounds",)),
-        lambda c: (c["rounds"],), lambda c: c["rounds"])
+        lambda c: (c["rounds"],), lambda c: c["rounds"],
+        lambda: fn(mask_b, **kw))
 
 
 def _solvers():
@@ -993,10 +1089,13 @@ def _graph_driven(label, res, loops, counts, steps):
     passes = int(res.iterations) + (int(res.stop_reason) == 0)
     looped = passes > 1
     whiles = -(-(passes - 1) // steps) if looped else 0
+    # a cold grow (a miss in its cache) captures its steps; a warm one
+    # (a hit) launches the entry's while graph again and captures none
+    captures = steps if looped and not loops.get("hits") else 0
     ok = (loops["reads"] == min(passes, 2) + 1
           and loops["replays"] == max(passes - 1, 0)
           and loops["launches"] == int(looped)
-          and (loops["captures"] > 0) == looped
+          and loops["captures"] == captures
           and counts["count_step"] == max(passes - 1, 0)
           and counts["set_while"] == (1 + whiles) * looped)
     if not ok:
@@ -1660,6 +1759,20 @@ def device_idle(fn, names=None):
     return wall, busy / 1e6, 1 - busy / 1e6 / wall
 
 
+def traced_grow(label, fn, ran):
+    """``device_idle(fn)`` of a warm grow, whose while graph ran ``ran``
+    steps untraced: the trace must show the while graph's body, its
+    ``count_step`` kernel ``ran`` times (a grow under the profiler
+    launches a while graph instantiated during the trace)."""
+    names = {}
+    wall, busy, idle = device_idle(fn, names)
+    seen = sum(n for k, (n, _) in names.items() if "count_step(" in k)
+    if seen != ran:
+        raise SystemExit(f"{label}: the trace of a warm grow shows "
+                         f"count_step {seen} times, its untraced run {ran}")
+    return wall, busy, idle
+
+
 def _grow_run(fn):
     """(result, wall s, kernel launches, loop counts) of one run."""
     import torch
@@ -1673,7 +1786,7 @@ def _grow_run(fn):
     return res, time.perf_counter() - t0, read_counts(), loop_counts()
 
 
-def _grow_three_ways(phase, name, fn, steps):
+def _grow_three_ways(phase, name, fn, steps, fn_b=None):
     """``fn`` (one grow of ``steps`` step functions) driven by the while
     graph and by the eager loop with the kernels, each after a warm-up,
     and by the eager loop with the plain versions: the three must agree
@@ -1681,33 +1794,65 @@ def _grow_three_ways(phase, name, fn, steps):
     must count the eager run's K1-K7 launches and pass
     ``_graph_driven``, the eager run read ``stop`` once per pass plus
     once and launch no kernel of the while graph, and the plain run
-    launch nothing.  -> (graph result, graph s, launches, loop counts,
+    launch nothing.  The graph-driven warm-up is cold (the loops' caches
+    emptied before it: a miss that captures) and passes
+    ``_graph_driven`` too; the timed run is warm (a hit: no capture, the
+    entry's while graph launched again).  ``fn_b``: the grow on new
+    data of the same shapes, graph-driven (a hit that captures nothing)
+    and in the eager loop, bit-equal, not equal to ``fn``'s.  -> (graph
+    result, graph s, launches, loop counts with "cold_s" and "new_data_s",
     eager s)."""
-    fn()                                       # warm-ups: graph, eager
+    clear_loop_caches()
+    cold, cold_s, cold_counts, cold_loops = _grow_run(fn)
+    _graph_driven(f"{phase} {name} (cold)", cold, cold_loops, cold_counts,
+                  steps)
     res, secs, counts, loops = _grow_run(fn)
     with eager_loop():
         fn()
         eager, e_secs, e_counts, e_loops = _grow_run(fn)
     with plain_kernels():
         ref, p_secs, p_counts, _ = _grow_run(fn)
-    same = _same_grow(res, eager) and _same_grow(res, ref)
+    same = (_same_grow(res, eager) and _same_grow(res, ref)
+            and _same_grow(res, cold))
     passes = int(res.iterations) + (int(res.stop_reason) == 0)
-    log(phase, f"{name}: graphs {secs:.4f} s, eager loop {e_secs:.4f} s, "
+    log(phase, f"{name}: graphs {secs:.4f} s warm, {cold_s:.4f} s cold "
+        f"(capture + instantiate {cold_loops['capture_s']:.4f} s, "
+        f"{cold_loops['captures']} captured), eager loop {e_secs:.4f} s, "
         f"plain versions {p_secs:.4f} s; {passes} passes, while-graph "
         f"launches {loops['launches']}, host reads of stop "
-        f"{loops['reads']} (eager {e_loops['reads']}), graphs captured "
-        f"{loops['captures']}, capture + instantiate "
-        f"{loops['capture_s']:.4f} s, steps run from graphs "
-        f"{loops['replays']}; identical {same}")
+        f"{loops['reads']} (eager {e_loops['reads']}), warm: cache hits "
+        f"{loops['hits']}, graphs captured {loops['captures']}, steps run "
+        f"from graphs {loops['replays']}; identical {same}")
     if not same or any(p_counts.values()):
         raise SystemExit(f"{phase} {name}: graph, eager and plain runs "
                          f"differ (plain launches {p_counts})")
     if (_k1_k7(counts) != _k1_k7(e_counts)
             or any(e_counts[k] for k in WHILE_KERNELS)
-            or e_loops["reads"] != passes + 1):
+            or e_loops["reads"] != passes + 1 or not loops["hits"]):
         raise SystemExit(f"{phase} {name}: the graph run counts {counts}, "
                          f"{loops}; the eager loop {e_counts}, {e_loops}")
     _graph_driven(f"{phase} {name}", res, loops, counts, steps)
+    loops = {**loops, "cold_s": cold_s, "cold_captures":
+             cold_loops["captures"], "cold_capture_s": cold_loops["capture_s"]}
+    if fn_b is not None:
+        res_b, b_secs, b_counts, b_loops = _grow_run(fn_b)
+        with eager_loop():
+            e_b, _, e_b_counts, _ = _grow_run(fn_b)
+        same_b = _same_grow(res_b, e_b) and not _same_grow(res_b, res)
+        log(phase, f"{name}, new data of the same shapes: graphs "
+            f"{b_secs:.4f} s, cache hits {b_loops['hits']}, graphs "
+            f"captured {b_loops['captures']}, while-graph launches "
+            f"{b_loops['launches']}, {int(res_b.iterations)} iterations; "
+            f"equal to its eager loop (and not to the first data's) "
+            f"{same_b}")
+        if not (same_b and b_loops["hits"]
+                and _k1_k7(b_counts) == _k1_k7(e_b_counts)):
+            raise SystemExit(f"{phase} {name}: new data {b_loops}, "
+                             f"{b_counts} against the eager loop "
+                             f"{e_b_counts}, equal {same_b}")
+        _graph_driven(f"{phase} {name} (new data)", res_b, b_loops,
+                      b_counts, steps)
+        loops["new_data_s"] = b_secs
     return res, secs, counts, loops, e_secs
 
 
@@ -1722,24 +1867,30 @@ def phase_region_grow_512(vol, seed):
     dev = torch.device("cuda")
     data = torch.from_numpy(vol).to(dev)
     sd = torch.from_numpy(seed).to(dev)
+    # new data of the same shapes: the volume and the seed mirrored
+    data_b, sd_b = data.flip(2).contiguous(), sd.flip(2).contiguous()
     excluded = torch.zeros_like(sd)
     excluded[:SLAB] = True                     # far from the tube
     growers = {
-        "auto": (lambda: region_grow(data, sd, **RG_KW),
+        "auto": (lambda d, s: region_grow(d, s, **RG_KW),
                  ("region_grow_sweep", "masked_histogram1")),
-        "xla": (lambda: region_grow(data, sd, backend="xla", **RG_KW),
+        "xla": (lambda d, s: region_grow(d, s, backend="xla", **RG_KW),
                 ("masked_histogram1", "sign_lookup")),
-        "frontier": (lambda: region_grow_frontier(data, sd, **RG_KW),
+        "frontier": (lambda d, s: region_grow_frontier(d, s, **RG_KW),
                      ("region_grow_frontier", "masked_histogram1")),
-        "xla excluded": (lambda: region_grow(data, sd, excluded, backend="xla",
-                                             **RG_KW),
+        "xla excluded": (lambda d, s: region_grow(d, s, excluded,
+                                                  backend="xla", **RG_KW),
                          ("masked_histograms2", "sign_lookup")),
     }
     voxels = float(vol.size)
     results, launches = {}, {}
-    for name, (fn, kernels) in growers.items():
-        res, secs, counts, _, _ = _grow_three_ways(
-            "region_grow_512", name, fn, 2 if name == "auto" else 1)
+    for name, (grow, kernels) in growers.items():
+        def fn(grow=grow):
+            return grow(data, sd)
+
+        res, secs, counts, loops, _ = _grow_three_ways(
+            "region_grow_512", name, fn, 2 if name == "auto" else 1,
+            lambda grow=grow: grow(data_b, sd_b))
         it, n = int(res.iterations), int(res.segmented_count)
         used = {k: v for k, v in counts.items() if v}
         log("region_grow_512", f"{name}: {secs:.4f} s warm, {it} "
@@ -1755,11 +1906,13 @@ def phase_region_grow_512(vol, seed):
             raise SystemExit(f"{name}: {counts['sign_lookup']} K7 launches "
                              f"for {passes} passes")
         results[name], launches[name] = res, counts
-        wall, busy, idle = device_idle(fn)
-        log("region_grow_512", f"{name} traced by torch.profiler: "
-            f"{wall:.4f} s, device busy {busy:.4f} s, idle {idle:.1%}; "
-            f"against the untraced run's {secs:.4f} s idle "
-            f"{1 - busy / secs:.1%} (the tracer's host cost taken out)")
+        wall, busy, idle = traced_grow(f"region_grow_512 {name}", fn,
+                                       loops["replays"])
+        log("region_grow_512", f"{name} traced by torch.profiler, warm: "
+            f"{wall:.4f} s, device busy {busy:.4f} s, idle {idle:.1%}, "
+            f"count_step traced {loops['replays']} times; against the "
+            f"untraced warm run's {secs:.4f} s idle {1 - busy / secs:.1%} "
+            f"(the tracer's host cost taken out)")
         if busy <= 0:
             raise SystemExit(f"{name}: the trace holds no device time")
     a = results["auto"]
@@ -2176,15 +2329,18 @@ def phase_voxel_options(phantom, raw):
            f"s against {times['labels']:.3f} s")
     # the full-size LUT thinning driven by graphs equals the eager loop
     full_mask = torch.from_numpy(mask).cuda()
-    skel_g, tc, t_graph, t_eager = thin_graph_vs_eager(
+    skel_g, tc, t_cold, t_eager, warm_c = thin_graph_vs_eager(
         P, "(c) full-size LUT thinning", full_mask)
+    t_graph = warm_c["warm_same_s"]
     _check(np.array_equal(skel_g.cpu().numpy(), skel), P,
            "(c) the full-size graph-driven skeleton equals the pipeline's")
     wall, busy, idle = device_idle(lambda: thinning.skeletonize(full_mask))
     log(P, f"full-size device thinning: {tc['wave_passes']} wave + "
         f"{tc['final_passes']} final passes, {tc['reads']} host reads, "
         f"{tc['captures']} graphs captured in {tc['capture_s']:.4f} s, "
-        f"{tc['replays']} replays; graph-driven {t_graph:.4f} s, eager "
+        f"{tc['replays']} replays; graph-driven {t_cold:.4f} s cold, "
+        f"{t_graph:.4f} s warm ({warm_c['warm_s']:.4f} s on new data, "
+        f"{warm_c['warm']['captures']} captures), eager "
         f"loop {t_eager:.4f} s; traced {wall:.3f} s wall, {busy:.3f} s "
         f"device busy, idle share {idle:.1%} (against the untraced "
         f"graph-driven wall {1 - busy / t_graph:.1%})")
@@ -2226,9 +2382,9 @@ def phase_voxel_options(phantom, raw):
 
     # (f) components on the card against the native flood fill, each
     # call driven by graphs and equal to the eager loop
-    lab64, c64, t64, _ = cc_graph_vs_eager(P, "(f) components, 64 rounds",
-                                           full_mask)
-    lab, cfull, t_cc, _ = cc_graph_vs_eager(
+    lab64, c64, t64, _, _ = cc_graph_vs_eager(
+        P, "(f) components, 64 rounds", full_mask)
+    lab, cfull, t_cc, _, warm_f = cc_graph_vs_eager(
         P, "(f) components to convergence", full_mask, max_rounds=1 << 12)
     rounds, r64 = cfull["rounds"], c64["rounds"]
     wall, busy, idle = device_idle(lambda: cc.connected_components(
@@ -2236,9 +2392,11 @@ def phase_voxel_options(phantom, raw):
     log(P, f"components to convergence: {rounds} rounds, {cfull['reads']} "
         f"host reads, {cfull['captures']} graph captured in "
         f"{cfull['capture_s']:.4f} s, {cfull['replays']} replays; "
-        f"graph-driven {t_cc:.4f} s; traced {wall:.3f} s wall, {busy:.3f} s "
-        f"device busy, idle share {idle:.1%} (against the untraced "
-        f"graph-driven wall {1 - busy / t_cc:.1%})")
+        f"graph-driven {t_cc:.4f} s cold, {warm_f['warm_same_s']:.4f} s "
+        f"warm ({warm_f['warm_s']:.4f} s on new data); traced {wall:.3f} s "
+        f"wall, {busy:.3f} s device busy, idle share {idle:.1%} (against "
+        f"the untraced warm graph-driven wall "
+        f"{1 - busy / warm_f['warm_same_s']:.1%})")
     ref, k = native.label_components_native(mask)
     n64 = len(np.unique(lab64.cpu().numpy())) - 1
     _check(_same_partition(lab.cpu().numpy(), ref), P,
@@ -2585,8 +2743,10 @@ def _sharded_grow_vs_eager(phase, v_sh, seeds_sh):
     mask, iterations, count, stop reason and K1-K7 launches, on the
     "graph" route, every sweep after the first in one while-graph launch
     with min(sweeps, 2) + 1 ``stop`` reads (``_graph_driven``: two
-    steps), the eager loop's sweeps + 1; then one traced run: busy, idle
-    share traced and against the untraced wall -> a record."""
+    steps), the eager loop's sweeps + 1; the first run cold (the
+    caches emptied), then a warm run, a hit with no capture and the same
+    result; then one traced warm run (``traced_grow``): busy, idle share
+    traced and against the untraced warm wall -> a record."""
     import torch
 
     from arterynetwork_tpu_torch.parallel import sharded
@@ -2595,8 +2755,10 @@ def _sharded_grow_vs_eager(phase, v_sh, seeds_sh):
         return sharded.region_grow(v_sh, seeds_sh, max_segment_size=10 ** 7,
                                    iter_max=SHARDED_ITERS)
 
+    clear_loop_caches()                 # a cold grow
     res, secs, counts, loops = _grow_run(grow)
     route = sharded.region_grow.route
+    warm, warm_s, warm_counts, warm_loops = _grow_run(grow)
     with eager_loop():
         eager, e_secs, e_counts, e_loops = _grow_run(grow)
     same = (torch.equal(res.segmented_map.gather(),
@@ -2606,22 +2768,34 @@ def _sharded_grow_vs_eager(phase, v_sh, seeds_sh):
             == [int(eager.iterations), int(eager.segmented_count),
                 int(eager.stop_reason)])
     sweeps = int(res.iterations) + (int(res.stop_reason) == 0)
-    wall, busy, idle = device_idle(grow)
+    warm_ok = (torch.equal(warm.segmented_map.gather(),
+                           res.segmented_map.gather())
+               and warm_counts == counts and warm_loops["hits"] == 1
+               and warm_loops["captures"] == 0
+               and warm_loops["replays"] == loops["replays"]
+               and warm_loops["reads"] == loops["reads"])
+    wall, busy, idle = traced_grow(f"{phase} sharded grow", grow,
+                                   warm_loops["replays"])
     rec = {"route": route, "graph_s": secs, "eager_loop_s": e_secs,
            "sweeps": sweeps, "launches": counts, **loops,
            "eager_reads": e_loops["reads"],
            "host_reads_per_iteration": (loops["reads"] - 1) / max(sweeps, 1),
+           "warm_s": warm_s, "warm": warm_loops,
            "traced_s": wall, "busy_s": busy, "idle": idle,
-           "idle_untraced": 1 - busy / secs}
-    log(phase, f"sharded grow: graph-driven {secs:.4f} s (route {route}), "
+           "idle_untraced": 1 - busy / warm_s}
+    log(phase, f"sharded grow: graph-driven {secs:.4f} s cold, "
+        f"{warm_s:.4f} s warm (cache hit {warm_loops['hits']}, "
+        f"{warm_loops['captures']} captures, equal {warm_ok}; route {route}), "
         f"eager loop {e_secs:.4f} s; {sweeps} sweeps, while-graph launches "
         f"{loops['launches']}, host reads {loops['reads']} (eager "
         f"{e_loops['reads']}), graphs captured {loops['captures']}, "
         f"capture + instantiate {loops['capture_s']:.4f} s, steps run from "
         f"graphs {loops['replays']}; launches {counts} (eager {e_counts}); "
         f"bit-equal {same}; traced {wall:.4f} s, device busy {busy:.4f} s"
-        f", idle {idle:.1%} traced, {rec['idle_untraced']:.1%} untraced")
-    if not (same and route == "graph" and _k1_k7(counts) == _k1_k7(e_counts)
+        f" (warm), idle {idle:.1%} traced, {rec['idle_untraced']:.1%} "
+        f"untraced")
+    if not (same and warm_ok and route == "graph"
+            and _k1_k7(counts) == _k1_k7(e_counts)
             and not any(e_counts[k] for k in WHILE_KERNELS)
             and e_loops["reads"] == sweeps + 1
             and e_loops["captures"] == e_loops["replays"] == 0):
@@ -2641,20 +2815,25 @@ def _sharded_thin_vs_eager(phase, mask_sh, skel1):
     wall -> a record."""
     import torch
 
+    from arterynetwork_tpu_torch.parallel.halo import shard_volume
+
     fn = importlib.import_module(
         "arterynetwork_tpu_torch.parallel.sharded").skeletonize
-    out, c, secs, e_secs = _graph_vs_eager(
+    mask_b = shard_volume(_holes(mask_sh.gather()), mask_sh.mesh)
+    out, c, secs, e_secs, warm = _graph_vs_eager(
         phase, "sharded thinning",
         lambda: fn(mask_sh, max_waves=SHARDED_WAVES).gather(),
         lambda: _loop_fn_counts(fn, ("wave_passes", "final_passes")),
         lambda c: (c["wave_passes"], c["final_passes"]),
-        lambda c: 1 + c["wave_passes"] + c["final_passes"])
+        lambda c: 1 + c["wave_passes"] + c["final_passes"],
+        lambda: fn(mask_b, max_waves=SHARDED_WAVES).gather())
+    del mask_b
     same = torch.equal(out, skel1)
     wall, busy, idle = device_idle(lambda: fn(mask_sh,
                                               max_waves=SHARDED_WAVES))
     rec = {"route": fn.route, "graph_s": secs, "eager_loop_s": e_secs,
-           **c, "traced_s": wall, "busy_s": busy, "idle": idle,
-           "idle_untraced": 1 - busy / secs}
+           **c, **warm, "traced_s": wall, "busy_s": busy,
+           "idle": idle, "idle_untraced": 1 - busy / warm["warm_same_s"]}
     log(phase, f"sharded thinning: route {fn.route}, equal to the "
         f"single-device skeleton {same}; traced {wall:.4f} s, device busy"
         f" {busy:.4f} s, idle {idle:.1%} traced, "
@@ -2674,42 +2853,54 @@ POOL_BEFORE_GB = {"single-device": 73.5, "sharded": 72.7}
 
 def _pool_check(phase, mask1, mask_sh):
     """The graph pool kept per device and thread (ops/grow_loop.
-    graph_pool): after one ``torch.cuda.empty_cache()``, five
+    graph_pool) and the thinnings' caches of entries: the caches
+    emptied and one ``torch.cuda.empty_cache()``, then five
     single-device thinnings (16 waves, thin_pair.py's thin_speck) and
-    five sharded ones of the phase's mask, with the memory reserved
-    after each call; the fifth call's within 5% of the second's, as
-    every capture after the first reuses the pool's blocks -> a
-    record."""
+    five sharded ones of the phase's mask, with the memory reserved and
+    the graphs captured by each call: the first a miss that captures,
+    the other four hits that capture nothing, the fifth call's reserved
+    memory within 5% of the second's -> a record."""
     import torch
 
+    sharded = importlib.import_module(
+        "arterynetwork_tpu_torch.parallel.sharded")
+    thin = _ops("thinning").skeletonize
     thinnings = {
-        "single-device": lambda: _ops("thinning").skeletonize(
-            mask1, max_waves=SHARDED_WAVES),
-        "sharded": lambda: importlib.import_module(
-            "arterynetwork_tpu_torch.parallel.sharded").skeletonize(
-                mask_sh, max_waves=SHARDED_WAVES)}
+        "single-device": (thin, lambda: thin(mask1,
+                                             max_waves=SHARDED_WAVES)),
+        "sharded": (sharded.skeletonize, lambda: sharded.skeletonize(
+            mask_sh, max_waves=SHARDED_WAVES))}
+    clear_loop_caches()
     torch.cuda.empty_cache()
     rec = {}
-    for name, fn in thinnings.items():
+    for name, (fn, call) in thinnings.items():
         torch.cuda.reset_peak_memory_stats()
-        reserved = []
+        reserved, captures, secs = [], [], []
         t0 = time.perf_counter()
         for _ in range(POOL_CALLS):
-            fn()
+            t1 = time.perf_counter()
+            call()
             torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
             reserved.append(torch.cuda.memory_reserved() / 1e9)
-        rec[name] = {"reserved_gb": reserved,
+            captures.append(fn.captures)
+        rec[name] = {"reserved_gb": reserved, "captures": captures,
+                     "call_s": secs,
                      "peak_reserved_gb": torch.cuda.max_memory_reserved()
                      / 1e9, "s": time.perf_counter() - t0,
                      "before_gb": POOL_BEFORE_GB[name]}
-        log(phase, f"graph pool, {POOL_CALLS} {name} thinnings: reserved "
-            f"after each {', '.join(f'{g:.3f}' for g in reserved)} GB, "
-            f"peak {rec[name]['peak_reserved_gb']:.3f} GB (with a pool per "
-            f"call: {POOL_BEFORE_GB[name]} GB peak after five), "
-            f"{rec[name]['s']:.1f} s")
+        log(phase, f"graph pool and cache, {POOL_CALLS} {name} thinnings: "
+            f"reserved after each {', '.join(f'{g:.3f}' for g in reserved)}"
+            f" GB, peak {rec[name]['peak_reserved_gb']:.3f} GB (with a pool "
+            f"per call: {POOL_BEFORE_GB[name]} GB peak after five); graphs "
+            f"captured by each {captures}; seconds each "
+            f"{', '.join(f'{t:.4f}' for t in secs)}")
         if abs(reserved[-1] - reserved[1]) > 0.05 * reserved[1]:
             raise SystemExit(f"{phase}: reserved memory over {name} "
                              f"thinnings grew: {reserved} GB")
+        if not (captures[0] > 0 and not any(captures[1:])):
+            raise SystemExit(f"{phase}: {name} thinnings after the first "
+                             f"captured graphs: {captures}")
     return rec
 
 
@@ -2788,7 +2979,10 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     medians = {k: statistics.median(r[k] for r in stage_runs)
                for k in stage_runs[0]}
 
-    # the single-device composition on the card, each stage timed once
+    # the single-device composition on the card, each stage timed once,
+    # with the sharded runs' cached loop entries held (a vesselness that
+    # runs out of memory empties them, ops/grow_loop.frees_loop_caches)
+    frees = _ops("grow_loop").frees_loop_caches.frees
     vol = torch.from_numpy(np.ascontiguousarray(raw, np.float32)).to(dev)
     single = {}
     peaks_v, one = _vesselness_peaks(vol)
@@ -2798,6 +2992,8 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
     torch.cuda.synchronize()
     single["vesselness"] = time.perf_counter() - t0
     peaks_v["slabs"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    peaks_v["loop_cache_frees"] = (_ops("grow_loop").frees_loop_caches.frees
+                                   - frees)
     vmin, vmax = torch.min(v1), torch.max(v1)
     seeds = v1 > vmin + 0.5 * (vmax - vmin)
     t0 = time.perf_counter()
@@ -2805,8 +3001,9 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
                          iter_max=SHARDED_ITERS)
     single["region_grow"] = time.perf_counter() - t0
     mask1 = grown1.segmented_map
-    skel1, _, single["thinning"], _ = thin_graph_vs_eager(
+    skel1, _, single["thinning"], _, warm = thin_graph_vs_eager(
         phase, "single-device thinning", mask1, max_waves=SHARDED_WAVES)
+    single["thinning_warm"] = warm["warm_same_s"]
     v1_host = v1.cpu().numpy()
     if one is not None:
         peaks_v["one_slab_bit_equal"] = bool(np.array_equal(one, v1_host))
@@ -2935,8 +3132,15 @@ def phase_sharded(raw, phase="sharded_512", timed=3, extras=True):
                                          sigmas=SHARDED_SIGMAS)
         out["gates"]["f_k6b_blocks"] = _sharded_k6b(phase, v_sh, v1, seeds,
                                                     seeds_sh)
-        wall1, busy1, idle1 = device_idle(lambda: region_grow(
-            v1, seeds, max_segment_size=10 ** 7, iter_max=SHARDED_ITERS))
+        def grow1():
+            return region_grow(v1, seeds, max_segment_size=10 ** 7,
+                               iter_max=SHARDED_ITERS)
+
+        grow1()                         # warm: the trace's entry made
+        reset_loop_counts()
+        grow1()
+        wall1, busy1, idle1 = traced_grow(f"{phase} single-device grow",
+                                          grow1, loop_counts()["replays"])
         out.update({"single_grow_traced_s": wall1,
                     "single_grow_idle": idle1})
         traced = (f"traced single-device grower {wall1:.4f} s "
@@ -3076,7 +3280,7 @@ def speck_config():
 
 def _fresh():
     """Free the card's cached blocks, so that the next phase's peak is
-    its own."""
+    its own (the loops' cached entries stay)."""
     import gc
 
     import torch
@@ -4032,24 +4236,59 @@ def _finite(v):
 DISTRIBUTE_STEPS = 40   # distribute_flow_study's max_iter
 
 
-def _fit_vs_eager(res, run):
-    """distribute's fit graph-driven (``res``, just run; step 1 eager,
-    step 2 captured, 3-40 replayed) against ``run("cuda")`` in the eager
-    loop: within 1e-9 (relative), the steps, captures and replays as
-    said -> a record."""
-    fit = importlib.import_module(
-        "arterynetwork_tpu_torch.flow.distribute").distribute_flow
+def _fit_vs_eager(res, run, secs):
+    """distribute's fit graph-driven (``res``, just run in ``secs`` s, its
+    cache emptied before: a miss; step 1 eager, step 2 captured, 3-40
+    replayed) against ``run("cuda")`` in the eager loop: within 1e-9
+    (relative), the steps, captures and replays as said.  Then the fit
+    of the same tree at other targets (the desired pressures x 0.95: new
+    data of the same shapes), graph-driven, a hit that captures nothing
+    and replays all 40 steps, against its eager loop within 1e-9 -> a
+    record."""
+    import numpy as np
+
+    dist = importlib.import_module("arterynetwork_tpu_torch.flow.distribute")
+    fit = dist.distribute_flow
     rec = {k: getattr(fit, k) for k in ("steps", "captures", "replays",
-                                        "capture_s")}
+                                        "capture_s", "hit")}
+    rec["cold_s"] = secs
     with eager_loop():
         eager, e_secs = _sync_s(lambda: run("cuda"))
     rec.update(eager_loop_s=e_secs, eager_captures=fit.captures,
                max_rel_eager=max(_rel(res[k], eager[k]) for k in res))
     if not (rec["max_rel_eager"] <= 1e-9 and rec["eager_captures"] == 0
+            and not rec["hit"]
             and (rec["steps"], rec["captures"], rec["replays"])
             == (DISTRIBUTE_STEPS, 1, DISTRIBUTE_STEPS - 1)):
         raise SystemExit(f"studies distribute: the graph-driven fit "
                          f"against the eager loop: {rec}")
+    net = _study_net(STUDY_DEPTH)[0]
+
+    def other_targets():
+        out = dist.distribute_flow_study(
+            net, desired_terminating_pressure=0.95
+            * dist.DEFAULT_DESIRED_TERMINATING_PRESSURE, device="cuda")
+        return {"fractions": out["fractions"],
+                "edge_flow": out["edge_flow"],
+                "rms": out["rms_mismatch_mmhg"]}
+
+    warm, rec["warm_s"] = _sync_s(other_targets)
+    warm_counts = {k: getattr(fit, k) for k in ("steps", "captures",
+                                                "replays", "hit")}
+    with eager_loop():
+        e_warm = other_targets()
+    rec.update(warm=warm_counts, max_rel_warm_eager=max(
+        _rel(warm[k], e_warm[k]) for k in warm),
+        new_data=not np.array_equal(warm["fractions"], res["fractions"]))
+    log("studies", f"distribute's fit: graph-driven {secs:.4f} s cold "
+        f"(captured {rec['captures']} in {rec['capture_s']:.4f} s), "
+        f"{rec['warm_s']:.4f} s warm at other targets ({warm_counts}; "
+        f"within {rec['max_rel_warm_eager']:.3e} of its eager loop)")
+    if not (rec["max_rel_warm_eager"] <= 1e-9 and rec["new_data"]
+            and warm_counts == {"steps": DISTRIBUTE_STEPS, "captures": 0,
+                                "replays": DISTRIBUTE_STEPS, "hit": True}):
+        raise SystemExit(f"studies distribute: the warm fit at other "
+                         f"targets: {rec}")
     return rec
 
 
@@ -4083,6 +4322,8 @@ def phase_studies():
                 return _drivers(net, parts, radius_end, rng, store, device,
                                 physics)[name]()
 
+            if name == "distribute":
+                clear_loop_caches()     # the fit's first call: a miss
             with solve_loops() as loops:
                 res, secs = _sync_s(lambda: run("cuda"))
             out["seconds"][name] = secs
@@ -4093,7 +4334,7 @@ def phase_studies():
                 out["graphs"][name] = _graph_solves(f"studies {name}", loops)
                 msg += f" (flow solves graph-driven: {out['graphs'][name]})"
             if name == "distribute":
-                out["distribute_fit"] = _fit_vs_eager(res, run)
+                out["distribute_fit"] = _fit_vs_eager(res, run, secs)
                 msg += f"; the fit {out['distribute_fit']}"
             if name in EXPERIMENTS:
                 with solve_loops() as again:

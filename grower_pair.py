@@ -26,7 +26,9 @@ under build/grower_pair/), what chip_smoke.py's grower phases run:
   * speck_region_grow: the tube at 880x880x640 (radius 3; 10^7 voxels,
     60 iterations) through "auto", "xla" and the frontier grower.
 
-Each: a warm-up, then 3 timed runs (host clock ended by a synchronise),
+Each: a warm-up (timed: the cold call, with its loop counts; a tree
+that caches its growers' graphs has its caches emptied before it), then
+3 timed runs (host clock ended by a synchronise),
 then one run traced by torch.profiler for the device's idle share
 (chip_smoke.py's ``device_idle``: 1 - busy / wall, an upper bound, the
 tracer's host cost included; and 1 - busy / the timed runs' median) and
@@ -120,8 +122,14 @@ def worker(tree):
         grow_loop = None
     cs = _chip_smoke()
 
+    cold = []                                  # (s, loop counts) a call
+    # a tree without loop caches has nothing to empty
+    clear_caches = getattr(grow_loop, "clear_loop_caches", lambda: None)
+
     def loop_counts(fn):
         if grow_loop is None:
+            fn()
+            torch.cuda.synchronize()
             return None
         g = grow_loop.graph_loop
         grow_loop.read_stop.reads = 0
@@ -134,7 +142,11 @@ def worker(tree):
                 "launches": g.launches, "capture_s": g.capture_s}
 
     def timed(fn):
-        fn()                                   # warm-up
+        clear_caches()                         # a cold call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cold_loop = loop_counts(fn)            # warm-up: the cold call
+        cold.append((time.perf_counter() - t0, cold_loop))
         times = []
         for _ in range(RUNS):
             torch.cuda.synchronize()
@@ -147,9 +159,10 @@ def worker(tree):
     def grower(fn):
         res, times = timed(fn)
         names = {}
-        wall, busy, idle = cs.device_idle(fn, names)
+        wall, busy, idle = cs.device_idle(fn, names)    # warm
         med = statistics.median(times)
-        return {"times_s": times, "median_s": med,
+        return {"cold_s": cold[-1][0], "cold_loop": cold[-1][1],
+                "times_s": times, "median_s": med,
                 "traced_wall_s": wall, "busy_s": busy, "idle": idle,
                 "idle_untraced": 1 - busy / med,
                 "device_by_name": dict(sorted(names.items(),
@@ -268,7 +281,8 @@ def main():
         runs.append(rec)
         for cell in ("region_grow_512", "speck_region_grow"):
             print(f"{tree} {cell}: " + "; ".join(
-                f"{g} median {r['median_s']:.4f} s ("
+                f"{g} cold {r.get('cold_s', 0):.4f} s (loop "
+                f"{r.get('cold_loop')}), median {r['median_s']:.4f} s ("
                 + ", ".join(f"{t:.4f}" for t in r["times_s"])
                 + f"), traced {r['traced_wall_s']:.4f} s, idle "
                 f"{r['idle']:.1%} (against the median "

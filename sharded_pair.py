@@ -27,7 +27,9 @@ repeat cuda:0:
     Gauss-Newton steps, f64) on the study CLI's depth-10 tree (2,046
     edges), as the studies phase runs it.
 
-Each case: a warm-up, 3 timed runs (host clock ended by a synchronise),
+Each case: a warm-up (timed: the cold call, with its counts; a tree
+that caches its loops' graphs has its caches emptied before it), 3
+timed runs (host clock ended by a synchronise),
 one run traced by torch.profiler (thin_pair.py's ``traced``: busy time,
 the idle share against the traced wall and against the timed runs'
 median, the longest idle gaps with the device and host events around
@@ -173,14 +175,25 @@ def worker(tree):
         for name, fn, key, counts_of in cases:
             torch.cuda.empty_cache()               # each case from one state
             torch.cuda.reset_peak_memory_stats()
-            fn()                                   # warm-up
-            times = []
-            for _ in range(RUNS):
+
+            def reset():
                 grow_loop.read_stop.reads = 0
                 grow_loop.graph_loop.captures = 0
                 grow_loop.graph_loop.replays = 0
                 grow_loop.graph_loop.capture_s = 0.0
                 grow_loop.graph_loop.launches = 0
+
+            reset()
+            getattr(grow_loop, "clear_loop_caches",
+                    lambda: None)()                # a cold call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()                                   # warm-up: the cold call
+            torch.cuda.synchronize()
+            cold_s, cold_counts = time.perf_counter() - t0, counts_of()
+            times = []
+            for _ in range(RUNS):
+                reset()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = fn()
@@ -189,7 +202,8 @@ def worker(tree):
             counts = counts_of()
             wall, busy, idle, gaps = traced(fn)
             med = statistics.median(times)
-            r = {"times_s": times, "median_s": med, "traced_wall_s": wall,
+            r = {"cold_s": cold_s, "cold_counts": cold_counts,
+                 "times_s": times, "median_s": med, "traced_wall_s": wall,
                  "busy_s": busy, "idle": idle, "idle_untraced": 1 - busy / med,
                  "gaps": gaps, "peak_reserved_mib":
                      torch.cuda.max_memory_reserved() / 2 ** 20,
@@ -252,7 +266,9 @@ def main():
         rec["process_s"] = time.perf_counter() - t0
         runs.append(rec)
         for name, r in rec["cases"].items():
-            print(f"{tree} {name}: median {r['median_s']:.4f} s ("
+            print(f"{tree} {name}: cold {r.get('cold_s', 0):.4f} s ("
+                  f"counts {r.get('cold_counts')}), median "
+                  f"{r['median_s']:.4f} s ("
                   + ", ".join(f"{t:.4f}" for t in r["times_s"])
                   + f"), traced {r['traced_wall_s']:.4f} s, busy "
                   f"{r['busy_s']:.4f} s, idle {r['idle']:.1%} (against the "

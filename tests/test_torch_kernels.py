@@ -672,6 +672,12 @@ def _while_counts():
             graph_while.count_step.launches)
 
 
+def _clear_loop_caches():
+    """Empty every device loop's cache: the next call of each is cold
+    (a miss that captures)."""
+    grow_loop.clear_loop_caches()
+
+
 def _while_want(passes, n_steps):
     """_while_counts' deltas for a grow of ``passes`` passes of
     ``n_steps`` steps: one launch for 2+ passes, set_while once before
@@ -695,8 +701,10 @@ def test_graph_driven_growers_match_eager_loop(cuda, grower, shape,
     and runs a captured graph for every pass after the first, in one
     while-graph launch whose two kernels counted themselves on the
     device as often as the passes say (``_while_want``); a second call
-    captures anew and gives the same result."""
+    (a hit in the grower's cache) captures nothing, launches the same
+    while graph again and gives the same result with the same work."""
     fn = _growers(shape, cuda)[grower]
+    _clear_loop_caches()
     runs = []
     for _ in range(2):
         n0, l0, w0 = _launch_counts(), _loop_counts(), _while_counts()
@@ -712,7 +720,10 @@ def test_graph_driven_growers_match_eager_loop(cuda, grower, shape,
     key, launched, (reads, captures, replays), whiles = runs[0]
     assert all(torch.equal(a, b) for a, b in zip(key, eager))
     assert all(torch.equal(a, b) for a, b in zip(key, runs[1][0]))
-    assert runs[1][1:] == runs[0][1:]          # captured again, same work
+    _, w_launched, (w_reads, w_captures, w_replays), w_whiles = runs[1]
+    assert (w_launched, w_reads, w_replays, w_whiles) == (
+        launched, reads, replays, whiles)      # the same work, warm
+    assert w_captures == 0
     it, stop = int(key[2]), int(key[4])
     passes = it + (stop == 0)
     assert passes > 1
@@ -873,8 +884,11 @@ def _loop_counts_of(fn, keys):
 
 
 def _graph_vs_eager(fn, counts, monkeypatch):
-    """``fn()`` twice driven by graphs and once in the eager loop ->
-    (graph result, eager result, counts of each run)."""
+    """``fn()`` twice driven by graphs, the caches emptied before (a cold
+    call, then a hit that captures nothing and replays every pass), and
+    once in the eager loop -> (graph result, eager result, counts of the
+    cold run and of the eager one)."""
+    _clear_loop_caches()
     runs = []
     for _ in range(2):
         out = fn()
@@ -886,7 +900,12 @@ def _graph_vs_eager(fn, counts, monkeypatch):
         eager = fn().cpu()
         ec = counts()
     (a, ca), (b, cb) = runs
-    assert torch.equal(b, a) and ca == cb      # captured again, same work
+    assert torch.equal(b, a)
+    passes = {k: v for k, v in ca.items() if k.endswith(("passes",
+                                                          "rounds"))}
+    assert {k: cb[k] for k in passes} == passes
+    assert (cb["reads"], cb["captures"], cb["replays"]) == (
+        ca["reads"], 0, sum(passes.values()))   # warm: every pass replayed
     assert ec["captures"] == ec["replays"] == 0
     return a, eager, ca, ec
 
@@ -925,8 +944,9 @@ def test_graph_driven_thinning_matches_eager_loop(cuda, vol, pe, max_waves,
     assert (w, f, c["reads"]) == (ec["wave_passes"], ec["final_passes"],
                                   ec["reads"])
     assert c["reads"] == 1 + w + f and w > 1
+    # cold: each key captured on its second pass, or at the call's end
     assert (c["captures"], c["replays"]) == (
-        (w >= 2) + (f >= 2), max(w - 1, 0) + max(f - 1, 0))
+        (w >= 1) + (f >= 1), max(w - 1, 0) + max(f - 1, 0))
 
 
 def _serpentine():
@@ -964,7 +984,7 @@ def test_graph_driven_components_match_eager_loop(cuda, vol, connectivity,
     assert c["reads"] == r
     if vol == "serpentine":
         assert r == min(max_rounds, 92 if connectivity == 1 else 91)
-    assert (c["captures"], c["replays"]) == (int(r >= 2), max(r - 1, 0))
+    assert (c["captures"], c["replays"]) == (int(r >= 1), max(r - 1, 0))
 
 
 @pytest.mark.gpu
@@ -1017,6 +1037,7 @@ def test_graph_driven_sharded_grower_matches_eager_loop(cuda, iter_max,
 
     vol, seed = tube_phantom((48, 48, 48))
     mesh = _mesh_2x2(cuda)
+    _clear_loop_caches()
 
     def run():
         n0, l0, w0 = _launch_counts(), _loop_counts(), _while_counts()
@@ -1083,7 +1104,7 @@ def test_graph_driven_sharded_thinning_matches_eager_loop(cuda, vol,
                                   ec["reads"])
     assert c["reads"] == 1 + w + f and w >= 1
     assert (c["captures"], c["replays"]) == (
-        (w >= 2) + (f >= 2), max(w - 1, 0) + max(f - 1, 0))
+        (w >= 1) + (f >= 1), max(w - 1, 0) + max(f - 1, 0))
 
 
 @pytest.mark.gpu
@@ -1099,6 +1120,7 @@ def test_graph_driven_fit_matches_eager_loop(cuda, monkeypatch):
     net = set_network_properties(generate_tree(max_depth=8, rng=rng),
                                  rng=rng)
     system = pd.build_distribute_system(net, 1e-5, 13000.0, device=cuda)
+    _clear_loop_caches()
     graph = pd.distribute_flow(system, max_iter=40)
     counts = (pd.distribute_flow.steps, pd.distribute_flow.captures,
               pd.distribute_flow.replays)

@@ -506,8 +506,8 @@ def _stand_in(monkeypatch):
     monkeypatch.setattr(graph_while, "_lib", lambda: lib)
     made = []
 
-    def loop_for(device, counters=(), watch=None):
-        made.append(grow_loop.GraphLoop(device, counters, watch))
+    def loop_for(device, counters=(), watch=None, keep=False):
+        made.append(grow_loop.GraphLoop(device, counters, watch, keep))
         return made[-1]
 
     monkeypatch.setattr(grow_loop, "loop_for", loop_for)
@@ -587,7 +587,9 @@ def test_graph_driven_thinning_matches_eager(monkeypatch, mesh_name, vol,
     assert (c["wave"], c["final"], c["reads"]) == (ec["wave"], ec["final"],
                                                    ec["reads"])
     assert c["reads"] == 1 + c["wave"] + c["final"]
-    captures = (c["wave"] >= 2) + (c["final"] >= 2)
+    # a cold call (a new entry): each key captured on its second pass,
+    # or, after one pass, at the call's end
+    captures = (c["wave"] >= 1) + (c["final"] >= 1)
     replays = max(c["wave"] - 1, 0) + max(c["final"] - 1, 0)
     assert (c["captures"], c["replays"]) == (captures, replays)
     assert fake.modes == [("pool", "thread_local")] * captures
@@ -626,7 +628,7 @@ def test_graph_driven_fit_matches_eager(monkeypatch, nets, depth,
     assert _fit_bits(graph) == _fit_bits(eager)
     assert len(made) == 1 and made[0].reads == 0
     assert made[0].runs == ({"gn": max_iter} if max_iter else {})
-    captures = int(max_iter >= 2)
+    captures = int(max_iter >= 1)      # after one step: at the end
     assert (pd.distribute_flow.steps, pd.distribute_flow.captures,
             pd.distribute_flow.replays) == (max_iter, captures,
                                             max(max_iter - 1, 0))

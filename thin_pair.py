@@ -25,7 +25,9 @@ under build/thin_pair/), what chip_smoke.py runs of them:
     the 512 mask at its default 64 rounds and with 4096 (it converges
     first).
 
-Each case: a warm-up, 3 timed runs (host clock ended by a synchronise),
+Each case: a warm-up (timed: the cold call, with its counts; a tree
+that caches its loops' graphs has its caches emptied before it), 3 timed
+runs (host clock ended by a synchronise),
 one run traced by torch.profiler for the device's idle share (as
 chip_smoke.py's ``device_idle``: 1 - busy / wall, the tracer's host cost
 included; and 1 - busy / the timed runs' median) and where the device
@@ -190,7 +192,7 @@ def worker(tree):
     import torch
 
     import arterynetwork_tpu_torch as pkg
-    from arterynetwork_tpu_torch.ops import cc, thinning
+    from arterynetwork_tpu_torch.ops import cc, grow_loop, thinning
 
     assert pkg.__file__.startswith(os.path.abspath(tree)), pkg.__file__
     cs = _chip_smoke()
@@ -207,7 +209,15 @@ def worker(tree):
     for name, (fn, counted) in cases.items():
         torch.cuda.empty_cache()                   # each case from one state
         torch.cuda.reset_peak_memory_stats()
-        fn()                                       # warm-up
+        getattr(grow_loop, "clear_loop_caches",
+                lambda: None)()                    # a cold call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()                                       # warm-up: the cold call
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        cold_counts = {k: getattr(counted, k) for k in COUNTS
+                       if hasattr(counted, k)}
         times = []
         for _ in range(RUNS):
             torch.cuda.synchronize()
@@ -220,6 +230,7 @@ def worker(tree):
         wall, busy, idle, gaps = traced(fn)
         med = statistics.median(times)
         rec["cases"][name] = {
+            "cold_s": cold_s, "cold_counts": cold_counts,
             "times_s": times, "median_s": med, "traced_wall_s": wall,
             "busy_s": busy, "idle": idle, "idle_untraced": 1 - busy / med,
             "gaps": gaps, "peak_reserved_mib":
@@ -266,7 +277,9 @@ def main():
         rec["process_s"] = time.perf_counter() - t0
         runs.append(rec)
         for name, r in rec["cases"].items():
-            print(f"{tree} {name}: median {r['median_s']:.4f} s ("
+            print(f"{tree} {name}: cold {r.get('cold_s', 0):.4f} s ("
+                  f"counts {r.get('cold_counts')}), median "
+                  f"{r['median_s']:.4f} s ("
                   + ", ".join(f"{t:.4f}" for t in r["times_s"])
                   + f"), traced {r['traced_wall_s']:.4f} s, busy "
                   f"{r['busy_s']:.4f} s, idle {r['idle']:.1%} (against the "
