@@ -1,0 +1,8 @@
+"""graph_s: the pipeline's own ``graph`` stage timer
+(``run_pipeline``'s ``timings``), mean seconds per volume of the
+window."""
+
+
+def read(run):
+    t = run.readings.get("timings")
+    return (sum(x.get("graph", 0.0) for x in t) / len(t)) if t else None

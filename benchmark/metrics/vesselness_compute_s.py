@@ -1,0 +1,8 @@
+"""vesselness_compute_s: the pipeline's own ``vesselness_compute`` stage timer
+(``run_pipeline``'s ``timings``), mean seconds per volume of the
+window."""
+
+
+def read(run):
+    t = run.readings.get("timings")
+    return (sum(x.get("vesselness_compute", 0.0) for x in t) / len(t)) if t else None
