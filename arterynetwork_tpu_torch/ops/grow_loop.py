@@ -150,12 +150,12 @@ import functools
 import gc
 import inspect
 import threading
-import time
 
 import torch
 from torch import OutOfMemoryError
 from torch.autograd import _profiler_enabled
 
+from ..utils.profiling import span
 from . import graph_while
 
 
@@ -378,34 +378,35 @@ class GraphLoop(HostLoop):
         counters = self.counters + [(w, "launches") for w in _counted()]
         before = [getattr(o, a) for o, a in counters]
         watched = None if self.watch is None else self.watch()
-        t0 = time.perf_counter()
-        graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
-                 else torch.cuda.CUDAGraph())
-        # thread_local: another thread of the caller may use the card
-        # meanwhile; this thread's unsafe calls still raise
-        pool = graph_pool(self.device)
-        # no garbage collection inside a capture: a finalizer run there
-        # (a loop's pinned word, an event) would act on the capturing
-        # stream
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            graph.capture_begin(pool=pool.id,
-                                capture_error_mode="thread_local")
+        # the span lies around the capture: none may open inside it
+        with span("graph_capture") as timed:
+            graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
+                     else torch.cuda.CUDAGraph())
+            # thread_local: another thread of the caller may use the card
+            # meanwhile; this thread's unsafe calls still raise
+            pool = graph_pool(self.device)
+            # no garbage collection inside a capture: a finalizer run
+            # there (a loop's pinned word, an event) would act on the
+            # capturing stream
+            collecting = gc.isenabled()
+            gc.disable()
             try:
-                step()
-            except BaseException:
+                graph.capture_begin(pool=pool.id,
+                                    capture_error_mode="thread_local")
                 try:
-                    graph.capture_end()     # leave capture mode; the
-                except RuntimeError:        # step's error is the one to
-                    _retire_pool(self.device)       # report
-                raise
-            graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
+                    step()
+                except BaseException:
+                    try:
+                        graph.capture_end()     # leave capture mode; the
+                    except RuntimeError:        # step's error is the one
+                        _retire_pool(self.device)       # to report
+                    raise
+                graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
         pool.last = graph
-        self.capture_s += time.perf_counter() - t0
+        self.capture_s += timed.seconds
         self.captures += 1
         added = [getattr(o, a) - b for (o, a), b in zip(counters, before)]
         for (o, a), b in zip(counters, before):
@@ -493,11 +494,7 @@ def graph_loop(steps, stop, entry=None):
                 graphs = [loop.capture(s, keep_graph=True) for s in order]
                 # stop, steps run (count_step), set_while's launches
                 words = stop.new_zeros(3)
-                t0 = time.perf_counter()
-                loop_graph = built = graph_while.WhileGraph(
-                    [g.raw_cuda_graph() for g, _ in graphs], stop,
-                    words[1:])
-                loop.capture_s += time.perf_counter() - t0
+                loop_graph = built = _while_graph(loop, graphs, stop, words)
                 if entry is not None:
                     entry.graphs, entry.words = graphs, words
                     entry.while_graph = loop_graph
@@ -505,11 +502,8 @@ def graph_loop(steps, stop, entry=None):
                 graphs, words = entry.graphs, entry.words
                 words.zero_()
                 if _profiler_enabled():
-                    t0 = time.perf_counter()
-                    loop_graph = built = graph_while.WhileGraph(
-                        [g.raw_cuda_graph() for g, _ in graphs], stop,
-                        words[1:])
-                    loop.capture_s += time.perf_counter() - t0
+                    loop_graph = built = _while_graph(loop, graphs, stop,
+                                                      words)
             loop_graph.launch(loop.side)
             graph_loop.launches += 1
             words[:1].copy_(stop.reshape(1))
@@ -527,6 +521,16 @@ def graph_loop(steps, stop, entry=None):
         graph_loop.captures += loop.captures
         graph_loop.replays += loop.replays
         graph_loop.capture_s += loop.capture_s
+
+
+def _while_graph(loop, graphs, stop, words):
+    """The while graph around the captured ``graphs``, its build counted
+    in ``loop.capture_s`` and the ``graph_capture`` span."""
+    with span("graph_capture") as timed:
+        built = graph_while.WhileGraph(
+            [g.raw_cuda_graph() for g, _ in graphs], stop, words[1:])
+    loop.capture_s += timed.seconds
+    return built
 
 
 def _count_runs(loop, graphs, ran, heads):

@@ -27,12 +27,12 @@ ops throughout, as the JAX package's is XLA.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import grow_loop
 
 
@@ -580,12 +580,10 @@ def frangi_vesselness_streamed(raw, sigmas=(1.0, 2.0, 3.0),
     else:
         mn, scale = 0.0, 1.0
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    t0 = time.perf_counter()
-    volp = torch.zeros((Zp + 2 * halo,) + shape_yx, dtype=torch.float32,
-                       device=device)
+    def dev(*arrays):
+        with span("vesselness_h2d"):
+            return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in arrays]
 
     def upload(c):
         lo = c * chunk_z
@@ -594,96 +592,102 @@ def frangi_vesselness_streamed(raw, sigmas=(1.0, 2.0, 3.0),
         sl = raw[lo:hi]
         if bits in (2, 3, 4):
             # row-adaptive low-bit: per-(z,y)-row min/scale sideband
-            slf = np.ascontiguousarray(sl, dtype=np.float32)
-            sp = None
-            if skip_background:
-                # native stats scan + pack of kept rows only
-                sp = _pack_compact_native(slf, bits)
-            if sp is None:
-                packed, rsc, rmn = bq_pack_native(slf, bits)
+            with span("vesselness_pack"):
+                slf = np.ascontiguousarray(sl, dtype=np.float32)
+                sp = None
                 if skip_background:
-                    sp = _compact_bq_slab(packed, rsc, rmn, bits)
+                    # native stats scan + pack of kept rows only
+                    sp = _pack_compact_native(slf, bits)
+                if sp is None:
+                    packed, rsc, rmn = bq_pack_native(slf, bits)
+                    if skip_background:
+                        sp = _compact_bq_slab(packed, rsc, rmn, bits)
             if sp is not None:
                 pay, idx, rsc2, rmn2, nch = sp
                 _upload_slab_bq_sparse(
-                    volp, dev(pay), dev(idx.astype(np.int64)), dev(rsc2),
-                    dev(rmn2), lo + halo, bits=bits, cs=_SKIP_CHUNK_ROWS,
+                    volp, *dev(pay, idx.astype(np.int64), rsc2, rmn2),
+                    lo + halo, bits=bits, cs=_SKIP_CHUNK_ROWS,
                     n_chunks=nch, rows=rows, ny=int(shape_yx[0]))
                 return
-            _upload_slab_bq(volp, dev(packed), dev(rsc), dev(rmn),
-                            lo + halo, bits)
+            _upload_slab_bq(volp, *dev(packed, rsc, rmn), lo + halo, bits)
             return
         if bits == 8:
-            q = np.round((sl.astype(np.float32) - mn)
-                         * (255.0 / scale)).astype(np.uint8)
-            _upload_slab_u8(volp, dev(q), lo + halo, scale / 255.0, mn)
+            with span("vesselness_pack"):
+                q = np.round((sl.astype(np.float32) - mn)
+                             * (255.0 / scale)).astype(np.uint8)
+            _upload_slab_u8(volp, *dev(q), lo + halo, scale / 255.0, mn)
             return
         if bits == 12:
-            flat = sl.reshape(-1).astype(np.float32)
-            pad = (-flat.shape[0]) % 2
-            if pad:
-                flat = np.concatenate([flat, flat[-1:]])
-            q = np.round((flat - mn) * (4095.0 / scale)).astype(np.uint16)
-            q0, q1 = q[0::2], q[1::2]
-            packed = np.empty((q0.shape[0], 3), np.uint8)
-            packed[:, 0] = q0 >> 4
-            packed[:, 1] = ((q0 & 0xF) << 4) | (q1 >> 8)
-            packed[:, 2] = q1 & 0xFF
+            with span("vesselness_pack"):
+                flat = sl.reshape(-1).astype(np.float32)
+                pad = (-flat.shape[0]) % 2
+                if pad:
+                    flat = np.concatenate([flat, flat[-1:]])
+                q = np.round((flat - mn) * (4095.0 / scale)).astype(
+                    np.uint16)
+                q0, q1 = q[0::2], q[1::2]
+                packed = np.empty((q0.shape[0], 3), np.uint8)
+                packed[:, 0] = q0 >> 4
+                packed[:, 1] = ((q0 & 0xF) << 4) | (q1 >> 8)
+                packed[:, 2] = q1 & 0xFF
             f32 = torch.float32
-            _upload_slab_u12(
-                volp, dev(packed), lo + halo,
-                torch.tensor(np.float32(scale / 4095.0), dtype=f32,
-                             device=device),
-                torch.tensor(np.float32(mn), dtype=f32, device=device),
-                rows, shape_yx)
+            with span("vesselness_h2d"):
+                sc, off = (torch.tensor(np.float32(x), dtype=f32,
+                                        device=device)
+                           for x in (scale / 4095.0, mn))
+            _upload_slab_u12(volp, *dev(packed), lo + halo, sc, off, rows,
+                             shape_yx)
             return
-        _upload_slab_f16(volp, dev(sl.astype(np.float16)), lo + halo)
+        with span("vesselness_pack"):
+            f16 = sl.astype(np.float16)
+        _upload_slab_f16(volp, *dev(f16), lo + halo)
 
     starts = [c * chunk_z for c in range(n_chunks)]
     sigma0 = sigmas[0]
-    best = torch.zeros((Zp,) + shape_yx, dtype=torch.float32, device=device)
-    upload(0)
-    if gamma is None:
-        # scale 0 caches its smoothed field; the other scales' gamma
-        # (S-max) passes run cache-less in the same loop
-        smf0 = torch.zeros_like(volp)
-        parts0 = []
-        parts_rest = [[] for _ in sigmas[1:]]
-        for c in range(n_chunks):
-            if c + 1 < n_chunks:
-                upload(c + 1)
-            parts0.append(_smax_chunk_cache(smf0, volp, starts[c], sigma0,
-                                            halo, chunk_z))
-            for si, sigma in enumerate(sigmas[1:]):
-                parts_rest[si].append(_smax_chunk(volp, starts[c], sigma,
-                                                  halo, chunk_z))
+    with span("vesselness_upload") as t_upload:
+        volp = torch.zeros((Zp + 2 * halo,) + shape_yx, dtype=torch.float32,
+                           device=device)
+        best = torch.zeros((Zp,) + shape_yx, dtype=torch.float32,
+                           device=device)
+        upload(0)
+        if gamma is None:
+            # scale 0 caches its smoothed field; the other scales' gamma
+            # (S-max) passes run cache-less in the same loop
+            smf0 = torch.zeros_like(volp)
+            parts0 = []
+            parts_rest = [[] for _ in sigmas[1:]]
+            for c in range(n_chunks):
+                if c + 1 < n_chunks:
+                    upload(c + 1)
+                parts0.append(_smax_chunk_cache(smf0, volp, starts[c],
+                                                sigma0, halo, chunk_z))
+                for si, sigma in enumerate(sigmas[1:]):
+                    parts_rest[si].append(_smax_chunk(volp, starts[c],
+                                                      sigma, halo, chunk_z))
+        else:
+            for c in range(1, n_chunks):
+                upload(c)
         _sync(device)
-        t_upload = time.perf_counter() - t0
 
-        t0 = time.perf_counter()
-        g0 = torch.max(torch.stack(parts0)) * 0.5
-        for s in starts:
-            _apply_chunk_sm(best, smf0, s, g0, sigma0, float(alpha),
-                            float(beta), bool(bright), halo, chunk_z)
-        del smf0
-        # remaining scales: direct applies from the resident volume
-        for si, sigma in enumerate(sigmas[1:]):
-            g = torch.max(torch.stack(parts_rest[si])) * 0.5
+    with span("vesselness_compute") as t_compute:
+        if gamma is None:
+            g0 = torch.max(torch.stack(parts0)) * 0.5
             for s in starts:
-                _apply_chunk(best, volp, s, g, sigma, float(alpha),
-                             float(beta), bool(bright), halo, chunk_z)
-    else:
-        for c in range(1, n_chunks):
-            upload(c)
+                _apply_chunk_sm(best, smf0, s, g0, sigma0, float(alpha),
+                                float(beta), bool(bright), halo, chunk_z)
+            del smf0
+            # remaining scales: direct applies from the resident volume
+            for si, sigma in enumerate(sigmas[1:]):
+                g = torch.max(torch.stack(parts_rest[si])) * 0.5
+                for s in starts:
+                    _apply_chunk(best, volp, s, g, sigma, float(alpha),
+                                 float(beta), bool(bright), halo, chunk_z)
+        else:
+            g = torch.tensor(gamma, dtype=torch.float32, device=device)
+            for sigma in sigmas:
+                for s in starts:
+                    _apply_chunk(best, volp, s, g, sigma, float(alpha),
+                                 float(beta), bool(bright), halo, chunk_z)
+        out = best[:Z]
         _sync(device)
-        t_upload = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        g = torch.tensor(gamma, dtype=torch.float32, device=device)
-        for sigma in sigmas:
-            for s in starts:
-                _apply_chunk(best, volp, s, g, sigma, float(alpha),
-                             float(beta), bool(bright), halo, chunk_z)
-    out = best[:Z]
-    _sync(device)
-    t_compute = time.perf_counter() - t0
-    return out, t_upload, t_compute
+    return out, t_upload.seconds, t_compute.seconds

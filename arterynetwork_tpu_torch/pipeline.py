@@ -29,8 +29,6 @@ the reference's file names, as the JAX package's does.
 
 from __future__ import annotations
 
-import dataclasses
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -39,18 +37,11 @@ import torch.nn.functional as F
 
 from .config import PipelineConfig
 from .utils.hostmem import configure_host_allocator
+from .utils.profiling import StageTimer, span
 
 # volume stages churn 100-200 MB numpy temporaries per call; keep them
 # heap-resident so steady-state runs do not re-fault every page
 configure_host_allocator()
-
-
-@dataclasses.dataclass
-class StageTimings:
-    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
-
-    def add(self, name, t):
-        self.seconds[name] = self.seconds.get(name, 0.0) + t
 
 
 def _border_core(shape, margin: int, device):
@@ -158,27 +149,24 @@ def _tip_extended_weak(v, weak, vmin, rng, tip_frac, iters, nbr_max,
 
 
 def vesselness_stage(raw_volume, config: Optional[PipelineConfig] = None,
-                     store=None, affine=None, timings=None, device="cuda"):
+                     store=None, affine=None, device="cuda"):
     """Raw MRA volume (host) -> Frangi vesselness (tensor on ``device``).
 
-    With a ``timings`` struct, the upload-bound and compute-bound phases
-    are attributed separately (``vesselness_upload`` /
-    ``vesselness_compute``).  A ``store`` gets vesselnessFiltered.nii.gz
-    (float32)."""
+    The upload-bound and compute-bound phases are the spans
+    ``vesselness_upload`` / ``vesselness_compute`` of
+    ``frangi_vesselness_streamed``.  A ``store`` gets
+    vesselnessFiltered.nii.gz (float32)."""
     from .ops.vesselness import frangi_vesselness_streamed
 
     cfg = (config or PipelineConfig()).vesselness
     bits = {"bq2": 2, "bq3": 3, "bq4": 4, "u8": 8, "u12": 12,
             "f16": 16}[cfg.upload_format]
-    v, t_up, t_comp = frangi_vesselness_streamed(
+    v, _, _ = frangi_vesselness_streamed(
         raw_volume, sigmas=tuple(cfg.sigmas),
         alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.gamma,
         bright=cfg.bright, bits=bits,
         skip_background=bool(cfg.upload_skip) and bits <= 4,
         device=device)
-    if timings is not None:
-        timings.add("vesselness_upload", t_up)
-        timings.add("vesselness_compute", t_comp)
     if store is not None:
         store.save_nifti("vesselnessFiltered.nii.gz", v.cpu().numpy(),
                          affine=affine, astype=np.float32)
@@ -187,8 +175,7 @@ def vesselness_stage(raw_volume, config: Optional[PipelineConfig] = None,
 
 def generate_vessel_mask(vesselness, brain_mask=None,
                          config: Optional[PipelineConfig] = None,
-                         store=None, affine=None, timings=None,
-                         device="cuda"):
+                         store=None, affine=None, device="cuda"):
     """Vesselness-filtered volume -> binary uint8 vessel mask (host).
 
     Reference semantics (generateVesselVolume.py:186-199): with a
@@ -234,17 +221,14 @@ def generate_vessel_mask(vesselness, brain_mask=None,
                 v, weak, vmin, rng, cfg.tip_fraction, int(cfg.tip_iters),
                 int(cfg.tip_neighbor_max), margin, exclude=near)
         # both masks cross to the host as packed bits, in one download
-        t0 = time.perf_counter()
-        wp_d, sp_d = pack_mask(weak), pack_mask(strong_ds)
-        both = torch.cat([wp_d, sp_d]).cpu().numpy()
-        wp, sp = both[:wp_d.shape[0]], both[wp_d.shape[0]:]
-        if timings is not None:  # threshold compute + packed-mask download
-            timings.add("segmentation_download", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        mask = hysteresis_components_ds2_packed_native(
-            wp, tuple(weak.shape), sp, min_size=cfg.min_component_size)
-        if timings is not None:
-            timings.add("segmentation_flood", time.perf_counter() - t0)
+        # (the span also waits for the threshold compute)
+        with span("segmentation_download"):
+            wp_d, sp_d = pack_mask(weak), pack_mask(strong_ds)
+            both = torch.cat([wp_d, sp_d]).cpu().numpy()
+            wp, sp = both[:wp_d.shape[0]], both[wp_d.shape[0]:]
+        with span("segmentation_flood"):
+            mask = hysteresis_components_ds2_packed_native(
+                wp, tuple(weak.shape), sp, min_size=cfg.min_component_size)
     else:
         if brain_mask is not None:
             keep = _threshold_with_brain(
@@ -345,17 +329,19 @@ def graph_stage(skeleton, mask, config=None, store=None,
                 f"vs mask {np.asarray(mask).shape})")
         distance_transform = compute_mask_edt(mask)
         origin = (0, 0, 0)
-    _, segments = skeleton_to_segments(
-        skeleton, prune_min_length=cfg.prune_min_length, build_graph=False,
-        origin=origin, distance_transform=distance_transform,
-        simplify=cfg.simplify,
-        collapse=cfg.collapse_junctions,
-        radius_factor=cfg.prune_radius_factor,
-        cycle_tight_ratio=cfg.cycle_tight_ratio,
-        simplify_rounds=cfg.simplify_rounds,
-        bridge_max_len=cfg.bridge_max_len)
-    attrs = compute_branch_attrs(segments, segments, distance_transform,
-                                 origin=origin)
+    with span("graph_segments"):
+        _, segments = skeleton_to_segments(
+            skeleton, prune_min_length=cfg.prune_min_length,
+            build_graph=False, origin=origin,
+            distance_transform=distance_transform, simplify=cfg.simplify,
+            collapse=cfg.collapse_junctions,
+            radius_factor=cfg.prune_radius_factor,
+            cycle_tight_ratio=cfg.cycle_tight_ratio,
+            simplify_rounds=cfg.simplify_rounds,
+            bridge_max_len=cfg.bridge_max_len)
+    with span("graph_attrs"):
+        attrs = compute_branch_attrs(segments, segments, distance_transform,
+                                     origin=origin)
     G = None
     if build_nx or store is not None:
         dt_full = np.asarray(distance_transform)
@@ -382,8 +368,9 @@ def flow_stage_soa(segments, attrs, root, config=None, store=None,
     from .graphs.soa_path import segments_to_flow_network
 
     cfg = (config or PipelineConfig()).flow
-    net, node_of = segments_to_flow_network(segments, attrs, root,
-                                            spacing=cfg.spacing)
+    with span("flow_network"):
+        net, node_of = segments_to_flow_network(segments, attrs, root,
+                                                spacing=cfg.spacing)
     return _solve_network(net, node_of, cfg, store=store,
                           boundary_pressure=boundary_pressure,
                           ground_truth_option=ground_truth_option, rng=rng,
@@ -400,71 +387,84 @@ def flow_stage(G, segments, root, config=None, store=None,
                                    reduced_to_flow_network)
 
     cfg = (config or PipelineConfig()).flow
-    partition_bfs(G, [root], [])
-    # solve the connected component containing the root: drop segments the
-    # BFS never reached (the reference also works per component,
-    # graphRelated.py:93-95)
-    reached = [i for i, seg in enumerate(segments)
-               if all("depthLevel" in G.nodes[tuple(v)] for v in
-                      (seg[0], seg[-1]))]
-    DG = reduce_graph(G, segments, reached)
-    net, node_of = reduced_to_flow_network(DG, root, spacing=cfg.spacing)
+    with span("flow_network"):
+        partition_bfs(G, [root], [])
+        # solve the connected component containing the root: drop
+        # segments the BFS never reached (the reference also works per
+        # component, graphRelated.py:93-95)
+        reached = [i for i, seg in enumerate(segments)
+                   if all("depthLevel" in G.nodes[tuple(v)] for v in
+                          (seg[0], seg[-1]))]
+        DG = reduce_graph(G, segments, reached)
+        net, node_of = reduced_to_flow_network(DG, root,
+                                               spacing=cfg.spacing)
     return _solve_network(net, node_of, cfg, store=store,
                           boundary_pressure=boundary_pressure,
                           ground_truth_option=ground_truth_option, rng=rng,
                           device=device)
 
 
+def _boundary_pressure(net, cfg, ground_truth_option, rng):
+    """The network's boundary pressures: the ground truth's depth sweep,
+    or where it is infeasible the terminating-pressure model."""
+    from .flow.ground_truth import create_ground_truth
+
+    gt = create_ground_truth(
+        net, option=ground_truth_option,
+        rng=rng or np.random.default_rng(0),
+        inlet_pressure=cfg.inlet_pressure, inlet_flow=cfg.inlet_flow)
+    if gt.success:
+        return gt.pressure
+    # the depth sweep can be infeasible on loopy graphs (the reference's
+    # documented failure mode, fluidSimulation.py:48-54, 594-596); fall
+    # back to the ADAN path-length terminating-pressure model, which is
+    # always well-defined — the Newton solver handles loops exactly.
+    from .flow.boundary import set_terminating_pressure
+
+    term = net.terminal_nodes()
+    parts = {"ALL": {"start_nodes": [int(n) for n in net.entry_nodes],
+                     "boundary_nodes": []}}
+    bp = set_terminating_pressure(
+        net, parts, pressure_in=cfg.inlet_pressure * 0.95)
+    bp[net.entry_nodes] = cfg.inlet_pressure
+    # any unreached terminal: flat default
+    bad = np.isnan(bp) & np.isin(np.arange(net.num_nodes),
+                                 np.concatenate([term, net.entry_nodes]))
+    bp[bad & np.isnan(bp)] = cfg.inlet_pressure * 0.8
+    return bp
+
+
 def _solve_network(net, node_of, cfg, store=None, boundary_pressure=None,
                    ground_truth_option=2, rng=None, device="cuda"):
     from .flow.adan import set_network_ck
-    from .flow.ground_truth import create_ground_truth
     from .flow.solvers import solve_pressure_newton
     from .flow.system import build_system
 
-    net = set_network_ck(net)
+    with span("flow_network"):
+        net = set_network_ck(net)
 
     if boundary_pressure is None:
-        gt = create_ground_truth(
-            net, option=ground_truth_option,
-            rng=rng or np.random.default_rng(0),
-            inlet_pressure=cfg.inlet_pressure, inlet_flow=cfg.inlet_flow)
-        if gt.success:
-            boundary_pressure = gt.pressure
-        else:
-            # the depth sweep can be infeasible on loopy graphs (the
-            # reference's documented failure mode, fluidSimulation.py:48-54,
-            # 594-596); fall back to the ADAN path-length terminating-
-            # pressure model, which is always well-defined — the Newton
-            # solver handles loops exactly.
-            from .flow.boundary import set_terminating_pressure
-
-            term = net.terminal_nodes()
-            parts = {"ALL": {"start_nodes": [int(n) for n in
-                             net.entry_nodes], "boundary_nodes": []}}
-            bp = set_terminating_pressure(
-                net, parts, pressure_in=cfg.inlet_pressure * 0.95)
-            bp[net.entry_nodes] = cfg.inlet_pressure
-            # any unreached terminal: flat default
-            bad = np.isnan(bp) & np.isin(np.arange(net.num_nodes),
-                                         np.concatenate([term,
-                                                         net.entry_nodes]))
-            bp[bad & np.isnan(bp)] = cfg.inlet_pressure * 0.8
-            boundary_pressure = bp
+        with span("flow_boundary"):
+            boundary_pressure = _boundary_pressure(net, cfg,
+                                                   ground_truth_option, rng)
 
     dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
-    system = build_system(net, boundary_pressure=boundary_pressure,
-                          dtype=dtype, device=device)
-    plan = None
-    if cfg.linear_solver in ("auto", "tree"):
-        from .flow.tree_solver import plan_elimination
-        plan = plan_elimination(system)
-    sol = solve_pressure_newton(system, max_iter=cfg.max_iter, tol=cfg.tol,
-                                linear_solver=cfg.linear_solver, plan=plan,
-                                restarts=cfg.restarts)
-    pressure, flow, velocity = (sol.pressure.cpu().numpy(),
-                                sol.flow.cpu().numpy(),
-                                sol.velocity.cpu().numpy())
+    with span("flow_system"):
+        system = build_system(net, boundary_pressure=boundary_pressure,
+                              dtype=dtype, device=device)
+        plan = None
+        if cfg.linear_solver in ("auto", "tree"):
+            from .flow.tree_solver import plan_elimination
+            plan = plan_elimination(system)
+    with span("flow_solve"):
+        sol = solve_pressure_newton(system, max_iter=cfg.max_iter,
+                                    tol=cfg.tol,
+                                    linear_solver=cfg.linear_solver,
+                                    plan=plan, restarts=cfg.restarts)
+    with span("flow_download"):
+        pressure, flow, velocity = (sol.pressure.cpu().numpy(),
+                                    sol.flow.cpu().numpy(),
+                                    sol.velocity.cpu().numpy())
     net = net.replace(node_pressure=pressure, edge_flow=flow,
                       edge_velocity=velocity)
     if store is not None:
@@ -477,11 +477,24 @@ def _solve_network(net, node_of, cfg, store=None, boundary_pressure=None,
     return net, sol, node_of
 
 
+def _inlet(segments):
+    """The inlet: the lowest-x terminal endpoint (endpoint degree = its
+    chain-end count; 1 = tip)."""
+    counts: Dict = {}
+    for seg in segments:
+        for v in (tuple(seg[0]), tuple(seg[-1])):
+            counts[v] = counts.get(v, 0) + 1
+    tips = [v for v, c in counts.items() if c == 1]
+    if not tips:
+        raise RuntimeError("no terminal voxels found for the inlet")
+    return min(tips, key=lambda v: v[2])
+
+
 def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
                  root=None, config: Optional[PipelineConfig] = None,
                  store=None, affine=None, raw_volume=None, device="cuda"):
     """Full volume -> flow pipeline on ``device``.  Returns a result dict
-    with the intermediate artifacts (host arrays) and per-stage timings.
+    with the intermediate artifacts (host arrays) and ``timings``.
 
     Entry points: a raw MRA volume (``raw_volume``; vesselness computed
     on ``device``) or a pre-filtered vesselness volume (``vesselness``).
@@ -493,96 +506,107 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
     ``flow.graph_path="nx"`` solves through the voxel graph
     (``flow_stage``), "soa" from the segments (``flow_stage_soa``).  A
     ``store`` (io.artifacts.ArtifactStore) gets every stage's artifact
-    under the reference's names, ``affine`` in the NIfTI headers."""
+    under the reference's names, ``affine`` in the NIfTI headers.
+
+    ``timings`` is ``{key: seconds}`` of one ``utils/profiling.StageTimer``,
+    made active for the call: every stage and sub-stage, here and deep
+    in the stack, is a ``span(key)`` that adds its seconds to it and,
+    under an active ``torch.profiler``, opens the range ``an.<key>``.
+    Keys, nested as the spans are (a key whose code does not run on a
+    path is absent):
+
+      vesselness           vesselness_upload (vesselness_pack and
+                           vesselness_h2d per slab), vesselness_compute
+      segmentation         segmentation_download, segmentation_flood
+                           (hysteresis)
+      edt
+      skeletonization      thinning (the native route)
+      graph                graph_segments, graph_attrs
+      inlet                (no ``root`` given)
+      flow                 flow_network, flow_boundary, flow_system,
+                           flow_solve, flow_download
+      graph_capture        wherever a CUDA graph is captured or a while
+                           graph built (``ops/grow_loop``)
+
+    A span is opened around a capture, never inside a captured step."""
     from .ops.native import (bounding_box, edt_masked_native,
                              skeletonize_native_cropped)
 
     config = config or PipelineConfig()
-    timings = StageTimings()
+    timer = StageTimer()
+    with timer.active():
+        if vesselness is None:
+            if raw_volume is None:
+                raise ValueError("provide raw_volume or vesselness")
+            with span("vesselness"):
+                vesselness = vesselness_stage(raw_volume, config,
+                                              store=store, affine=affine,
+                                              device=device)
 
-    if vesselness is None:
-        if raw_volume is None:
-            raise ValueError("provide raw_volume or vesselness")
-        t0 = time.perf_counter()
-        vesselness = vesselness_stage(raw_volume, config, store=store,
-                                      affine=affine, timings=timings,
-                                      device=device)
-        timings.add("vesselness", time.perf_counter() - t0)
+        with span("segmentation"):
+            if seed_mask is not None:
+                mask, _ = refine_mask_region_grow(vesselness, seed_mask,
+                                                  config, device=device)
+            else:
+                mask = generate_vessel_mask(vesselness, brain_mask, config,
+                                            store=store, affine=affine,
+                                            device=device)
 
-    t0 = time.perf_counter()
-    if seed_mask is not None:
-        mask, _ = refine_mask_region_grow(vesselness, seed_mask, config,
-                                          device=device)
-    else:
-        mask = generate_vessel_mask(vesselness, brain_mask, config,
-                                    store=store, affine=affine,
-                                    timings=timings, device=device)
-    timings.add("segmentation", time.perf_counter() - t0)
+        if config.skeleton.backend in ("auto", "native"):
+            # box-coordinate fast path: crop once after the mask, run EDT
+            # + thinning + chain extraction on the cropped frame (squared
+            # EDT end to end), and emit full-frame coordinates only at the
+            # segment / skeleton boundaries
+            with span("edt"):
+                box = bounding_box(mask, margin=2)
+                origin = tuple(int(s.start) for s in box)
+                # a fresh copy: the thinning below clobbers it in place
+                mask_box = np.array(mask[box], dtype=np.uint8, order="C")
+                d2_box = edt_masked_native(mask_box, squared=True)
 
-    if config.skeleton.backend in ("auto", "native"):
-        # box-coordinate fast path: crop once after the mask, run EDT +
-        # thinning + chain extraction on the cropped frame (squared EDT
-        # end to end), and emit full-frame coordinates only at the
-        # segment / skeleton boundaries
-        t0 = time.perf_counter()
-        box = bounding_box(mask, margin=2)
-        origin = tuple(int(s.start) for s in box)
-        # a fresh copy: the thinning below clobbers it in place
-        mask_box = np.array(mask[box], dtype=np.uint8, order="C")
-        d2_box = edt_masked_native(mask_box, squared=True)
-        timings.add("edt", time.perf_counter() - t0)
+            with span("skeletonization"):
+                with span("thinning"):
+                    skel_work = skeletonize_native_cropped(
+                        mask_box, d2_box,
+                        preserve_endpoints=config.skeleton
+                        .preserve_endpoints, clobber=True)
+                # the thinning consumed the squares
+                dt = np.sqrt(d2_box, out=d2_box)
+                skeleton = np.zeros(mask.shape, bool)
+                skeleton[box] = skel_work
+                if store is not None:
+                    store.save_nifti("skeleton.nii.gz",
+                                     skeleton.astype(np.uint8),
+                                     affine=affine, astype=np.uint8)
+        else:
+            with span("edt"):
+                dt = compute_mask_edt(mask)
+                origin = (0, 0, 0)
 
-        t0 = time.perf_counter()
-        skel_work = skeletonize_native_cropped(
-            mask_box, d2_box,
-            preserve_endpoints=config.skeleton.preserve_endpoints,
-            clobber=True)
-        dt = np.sqrt(d2_box, out=d2_box)  # thinning consumed the squares
-        skeleton = np.zeros(mask.shape, bool)
-        skeleton[box] = skel_work
-        if store is not None:
-            store.save_nifti("skeleton.nii.gz", skeleton.astype(np.uint8),
-                             affine=affine, astype=np.uint8)
-        timings.add("skeletonization", time.perf_counter() - t0)
-    else:
-        t0 = time.perf_counter()
-        dt = compute_mask_edt(mask)
-        origin = (0, 0, 0)
-        timings.add("edt", time.perf_counter() - t0)
+            with span("skeletonization"):
+                skeleton = skeletonize_stage(mask, config, store=store,
+                                             affine=affine,
+                                             distance_transform=dt,
+                                             device=device)
+                skel_work = skeleton
 
-        t0 = time.perf_counter()
-        skeleton = skeletonize_stage(mask, config, store=store,
-                                     affine=affine, distance_transform=dt,
-                                     device=device)
-        skel_work = skeleton
-        timings.add("skeletonization", time.perf_counter() - t0)
+        with span("graph"):
+            G, segments, attrs = graph_stage(
+                skel_work, mask, config, store=store, distance_transform=dt,
+                build_nx=(config.flow.graph_path == "nx"), origin=origin)
 
-    t0 = time.perf_counter()
-    G, segments, attrs = graph_stage(
-        skel_work, mask, config, store=store, distance_transform=dt,
-        build_nx=(config.flow.graph_path == "nx"), origin=origin)
-    timings.add("graph", time.perf_counter() - t0)
+        if root is None:
+            with span("inlet"):
+                root = _inlet(segments)
 
-    if root is None:
-        # inlet = the lowest-x terminal endpoint (endpoint degree = its
-        # chain-end count; 1 = tip)
-        counts: Dict = {}
-        for seg in segments:
-            for v in (tuple(seg[0]), tuple(seg[-1])):
-                counts[v] = counts.get(v, 0) + 1
-        tips = [v for v, c in counts.items() if c == 1]
-        if not tips:
-            raise RuntimeError("no terminal voxels found for the inlet")
-        root = min(tips, key=lambda v: v[2])
-
-    t0 = time.perf_counter()
-    if G is not None and config.flow.graph_path == "nx":
-        net, sol, node_of = flow_stage(G, segments, root, config,
-                                       store=store, device=device)
-    else:
-        net, sol, node_of = flow_stage_soa(segments, attrs, root, config,
-                                           store=store, device=device)
-    timings.add("flow", time.perf_counter() - t0)
+        with span("flow"):
+            if G is not None and config.flow.graph_path == "nx":
+                net, sol, node_of = flow_stage(G, segments, root, config,
+                                               store=store, device=device)
+            else:
+                net, sol, node_of = flow_stage_soa(segments, attrs, root,
+                                                   config, store=store,
+                                                   device=device)
 
     return {
         "mask": mask,
@@ -593,5 +617,5 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
         "network": net,
         "solution": sol,
         "node_of": node_of,
-        "timings": timings.seconds,
+        "timings": timer.seconds,
     }

@@ -30,6 +30,7 @@ from arterynetwork_tpu.utils.phantoms import (phantom_raw_volume,
                                               vascular_tree_phantom)
 from arterynetwork_tpu_torch import convert
 from arterynetwork_tpu_torch.pipeline import run_pipeline
+from arterynetwork_tpu_torch.utils.profiling import PORT_SPANS
 
 torch.set_num_threads(1)
 
@@ -90,7 +91,9 @@ def test_run_pipeline_matches_jax(kind, dtype, tol, wire):
                        device="cpu")
 
     assert set(out) == set(ref)
-    assert set(out["timings"]) == set(ref["timings"])
+    # every JAX key, and besides only the port's documented spans
+    assert set(ref["timings"]) <= set(out["timings"])
+    assert set(out["timings"]) - set(ref["timings"]) <= PORT_SPANS
     union = np.count_nonzero(out["mask"] | ref_mask)
     agree = union - np.count_nonzero(out["mask"] != ref_mask)
     assert union > 500 and agree >= 0.999 * union
@@ -166,7 +169,9 @@ def test_seeded_run_pipeline_matches_jax():
     ref_mask = np.array(ref["mask"])
     out = run_pipeline(vol, seed_mask=seed,
                        config=convert.pipeline_config(cfg), device="cpu")
-    assert set(out["timings"]) == set(ref["timings"])
+    # every JAX key, and besides only the port's documented spans
+    assert set(ref["timings"]) <= set(out["timings"])
+    assert set(out["timings"]) - set(ref["timings"]) <= PORT_SPANS
     np.testing.assert_array_equal(out["mask"], ref_mask)
     assert out["mask"].sum() > 500
     assert [list(map(tuple, s)) for s in out["segments"]] == \

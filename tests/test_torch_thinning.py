@@ -30,6 +30,7 @@ import torch
 from arterynetwork_tpu_torch.ops import native
 from arterynetwork_tpu_torch.ops import simple_point as tsp
 from arterynetwork_tpu_torch.ops import thinning as tt
+from arterynetwork_tpu_torch.utils.profiling import PORT_SPANS
 
 torch.set_num_threads(1)
 
@@ -232,7 +233,9 @@ def test_run_pipeline_brain_tip_device_thinning_matches_jax():
     ref_mask = np.array(ref["mask"])
     out = run_pipeline(raw_volume=raw, brain_mask=brain,
                        config=convert.pipeline_config(cfg), device="cpu")
-    assert set(out["timings"]) == set(ref["timings"])
+    # every JAX key, and besides only the port's documented spans
+    assert set(ref["timings"]) <= set(out["timings"])
+    assert set(out["timings"]) - set(ref["timings"]) <= PORT_SPANS
     np.testing.assert_array_equal(out["mask"], ref_mask)
     assert out["mask"].sum() > 500
     np.testing.assert_array_equal(out["skeleton"],
