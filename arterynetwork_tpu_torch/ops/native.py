@@ -1,4 +1,4 @@
-# Copy of arterynetwork_tpu/ops/native.py; builds into build/native/, and its distance-ordered thinning takes the port's ops/edt.py on a torch device.
+# Copy of arterynetwork_tpu/ops/native.py; builds into build/native/, its distance-ordered thinning takes the port's ops/edt.py on a torch device, and the EDT-and-thinning passes are the port's own (csrc/skeleton_layer.cpp).
 """ctypes binding for the native (C++) kernels.
 
 The shared library is built on demand from ``native/thinning.cpp`` with
@@ -18,9 +18,14 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO, "native")
+# native/*.cpp are the JAX package's sources too; the port's own passes
+# live in csrc/ (skeleton_layer.cpp: the pipeline's EDT-and-thinning
+# layer, whose oracles thin_volume and edt3d_sq_masked stay in the build)
 _SRCS = [os.path.join(_NATIVE_DIR, "thinning.cpp"),
          os.path.join(_NATIVE_DIR, "volume_ops.cpp"),
-         os.path.join(_NATIVE_DIR, "graph_ops.cpp")]
+         os.path.join(_NATIVE_DIR, "graph_ops.cpp"),
+         os.path.join(os.path.dirname(os.path.dirname(
+             os.path.abspath(__file__))), "csrc", "skeleton_layer.cpp")]
 # the port builds the shared sources into its own directory: the JAX
 # package's loader writes native/libnative.so, and two packages sharing
 # one output file would race under parallel test workers
@@ -28,6 +33,52 @@ _BUILD_DIR = os.path.join(_REPO, "build", "native")
 _SO = os.path.join(_BUILD_DIR, "libnative.so")
 
 _lib = None
+
+# the EDT-and-thinning layer's passes use the OpenMP team from this many
+# voxels up (the box's, or the frame's for the box search and the frame
+# skeleton); below it a pass runs on the calling thread.  On the H100
+# host's 8 cores the team wins a layer call from 2^18 voxels, alone and
+# with four processes sharing the cores, and ties or loses below it
+# (scripts/skeleton_layer_timing.py)
+_THREADED_VOXELS = 1 << 18
+
+# counts over the process (reset_layer_counts() zeroes them): calls of
+# the layer's native passes, calls on the threaded route, masked EDTs
+# that fell back to the full transform (a voxel more than r_max from
+# background), and the thinning's simple-point tests and deletions
+LAYER_COUNTS = {"calls": 0, "threaded": 0, "edt_fallbacks": 0,
+                "simple_tests": 0, "deletions": 0}
+
+
+def reset_layer_counts():
+    for key in LAYER_COUNTS:
+        LAYER_COUNTS[key] = 0
+
+
+def _layer_call(voxels: int) -> int:
+    """Counts a call of the layer's passes; 1 if it takes the threaded
+    route (``voxels`` at or past ``_THREADED_VOXELS``)."""
+    threaded = int(voxels >= _THREADED_VOXELS)
+    LAYER_COUNTS["calls"] += 1
+    LAYER_COUNTS["threaded"] += threaded
+    return threaded
+
+
+def _u8(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _mask_bytes(a):
+    """A 3-D mask as C-contiguous uint8 bytes, nonzero = foreground: a
+    C-contiguous uint8 or bool array as its own bytes (no copy), any
+    other as ``a != 0``."""
+    a = np.asarray(a)
+    if a.ndim != 3:
+        raise ValueError(f"a 3-D mask, not {a.shape}")
+    if (a.dtype not in (np.dtype(np.uint8), np.dtype(bool))
+            or not a.flags['C_CONTIGUOUS']):
+        a = np.ascontiguousarray(a != 0)
+    return a.view(np.uint8)
 
 
 def _build():
@@ -158,13 +209,34 @@ def get_lib():
     ]
     lib.ensure_simple_lut.restype = ctypes.c_int
     lib.ensure_simple_lut.argtypes = [ctypes.c_char_p]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i = ctypes.c_int
+    lib.sl_ensure_simple_lut.restype = ctypes.c_int
+    lib.sl_ensure_simple_lut.argtypes = [ctypes.c_char_p]
+    lib.sl_bounding_box.restype = ctypes.c_int
+    lib.sl_bounding_box.argtypes = [u8p, i, i, i, i,
+                                    ctypes.POINTER(ctypes.c_int64)]
+    lib.sl_crop.restype = None
+    lib.sl_crop.argtypes = [u8p, i, i, i, i, i, i, i, i, i, u8p, i]
+    lib.sl_edt_sq_masked.restype = ctypes.c_long
+    lib.sl_edt_sq_masked.argtypes = [u8p, i, i, i, i, f32p, u8p, i]
+    lib.sl_thin.restype = ctypes.c_long
+    lib.sl_thin.argtypes = [u8p, i, i, i, f32p, i, i,
+                            ctypes.POINTER(ctypes.c_long)]
+    lib.sl_sqrt_rows.restype = None
+    lib.sl_sqrt_rows.argtypes = [f32p, i, i, i, u8p, i]
+    lib.sl_frame.restype = None
+    lib.sl_frame.argtypes = [u8p, i, i, i, i, i, i, u8p, i, i, i, i]
     # one 8 MiB bit table answers the simple-point test in a load
-    # (generated once, ~seconds; later processes read the disk cache);
-    # env ARTERY_NO_SIMPLE_LUT falls back to the in-register flood
-    # fills (A/B toggle: the table can thrash a small LLC)
-    if not os.environ.get("ARTERY_NO_SIMPLE_LUT"):
-        lib.ensure_simple_lut(
-            os.path.join(_BUILD_DIR, "simple26.lut").encode())
+    # (generated once, ~seconds; later processes read the disk cache).
+    # The oracle's copy (native/thinning.cpp) loads it first, so a fresh
+    # build's file is the oracle's, and the layer's thinning reads that
+    # file (tests/test_torch_skeleton_layer.py holds the layer's own
+    # generator to it)
+    lut = os.path.join(_BUILD_DIR, "simple26.lut").encode()
+    lib.ensure_simple_lut(lut)
+    lib.sl_ensure_simple_lut(lut)
     _lib = lib
     return lib
 
@@ -192,7 +264,8 @@ def edt_native(mask, squared: bool = False) -> np.ndarray:
 
 
 def edt_masked_native(mask, r_max: int = 16,
-                      squared: bool = False, out=None) -> np.ndarray:
+                      squared: bool = False, out=None,
+                      rows=None) -> np.ndarray:
     """Exact EDT evaluated at foreground voxels only (banded
     sorted-offset scan, native).
 
@@ -203,6 +276,12 @@ def edt_masked_native(mask, r_max: int = 16,
     (thinning order, centerline radius recovery) only read the transform
     at vessel voxels, so this replaces three full-volume envelope passes
     with ~(4/3)*pi*d^3 probes per vessel voxel.
+
+    The layer's pass (csrc/skeleton_layer.cpp ``sl_edt_sq_masked``)
+    writes every element once, on the threaded route from
+    ``_THREADED_VOXELS`` voxels; the values are ``edt3d_sq_masked``'s.
+    ``rows``, a C-contiguous uint8 (nz, ny) array, gets 1 for each row
+    holding foreground (``sqrt_rows`` takes it).
     """
     m = np.asarray(mask)
     if m.dtype != np.uint8 or not m.flags['C_CONTIGUOUS']:
@@ -213,13 +292,30 @@ def edt_masked_native(mask, r_max: int = 16,
     if (out is None or out.shape != m.shape or out.dtype != np.float32
             or not out.flags['C_CONTIGUOUS']):
         out = np.empty(m.shape, np.float32)
-    unresolved = get_lib().edt3d_sq_masked(
-        m.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        nz, ny, nx, int(r_max),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    if rows is None:
+        rows = np.empty((nz, ny), np.uint8)
+    elif (rows.shape != (nz, ny) or rows.dtype != np.uint8
+            or not rows.flags['C_CONTIGUOUS']):
+        raise ValueError(f"rows must be C-contiguous uint8 {(nz, ny)}")
+    unresolved = get_lib().sl_edt_sq_masked(
+        _u8(m), nz, ny, nx, int(r_max),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), _u8(rows),
+        _layer_call(m.size))
     if unresolved:
+        LAYER_COUNTS["edt_fallbacks"] += 1
         return edt_native(m, squared=squared)
-    return out if squared else np.sqrt(out, out=out)
+    return out if squared else sqrt_rows(out, rows)
+
+
+def sqrt_rows(d2, rows) -> np.ndarray:
+    """``np.sqrt(d2, out=d2)`` for a C-contiguous float32 (nz, ny, nx)
+    array that is 0 outside the rows ``rows`` flags (``edt_masked_native``'s
+    output): only those rows are touched.  Returns ``d2``."""
+    nz, ny, nx = d2.shape
+    get_lib().sl_sqrt_rows(
+        d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), nz, ny, nx,
+        _u8(np.ascontiguousarray(rows, np.uint8)), _layer_call(d2.size))
+    return d2
 
 
 def label_components_native(mask) -> "tuple[np.ndarray, int]":
@@ -331,30 +427,69 @@ def drop_small_components_native(mask, threshold: int) -> np.ndarray:
 
 
 def bounding_box(mask, margin: int = 1):
-    """Slices of the foreground bounding box (with margin, clipped).
+    """Slices of the foreground box of a 3-D mask (with margin, clipped).
 
-    Nonzero = foreground for any numeric dtype — no full-volume bool
-    copy; the 3D case runs two reduction passes instead of four (the
-    z/y profiles share one 2D projection)."""
-    mask = np.asarray(mask)
+    Nonzero = foreground for any numeric dtype.  Searched natively (all-zero
+    words skipped, planes over threads from ``_THREADED_VOXELS`` voxels);
+    a mask that is not C-contiguous uint8 or bool is searched as
+    ``mask != 0``.  An empty mask gives ``slice(0, 1)`` on every axis."""
+    view = _mask_bytes(mask)
+    ext = np.empty(6, np.int64)
+    if not view.size or not get_lib().sl_bounding_box(
+            _u8(view), *view.shape, _layer_call(view.size),
+            ext.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))):
+        return (slice(0, 1),) * 3
+    return tuple(slice(max(int(ext[2 * a]) - margin, 0),
+                       min(int(ext[2 * a + 1]) + margin + 1, view.shape[a]))
+                 for a in range(3))
 
-    def _sl(profile, axis):
-        nz = np.nonzero(profile)[0]
-        return slice(max(int(nz[0]) - margin, 0),
-                     min(int(nz[-1]) + margin + 1, mask.shape[axis]))
 
-    if mask.ndim == 3:
-        proj_zy = mask.any(axis=2)
-        if not proj_zy.any():
-            return tuple(slice(0, 1) for _ in mask.shape)
-        return (_sl(proj_zy.any(axis=1), 0), _sl(proj_zy.any(axis=0), 1),
-                _sl(mask.any(axis=(0, 1)), 2))
-    if not mask.any():
-        return tuple(slice(0, 1) for _ in mask.shape)
-    return tuple(
-        _sl(mask.any(axis=tuple(a for a in range(mask.ndim) if a != axis)),
-            axis)
-        for axis in range(mask.ndim))
+def crop_box(mask, box) -> np.ndarray:
+    """``np.array(mask[box], dtype=np.uint8, order="C")`` for a C-contiguous
+    3-D uint8 or bool mask and a box of ``bounding_box``'s: a new uint8
+    array, copied natively (rows over threads).  Any other mask is
+    cropped as ``mask != 0``."""
+    view = _mask_bytes(mask)
+    z, y, x = (sl.indices(n)[:2] for sl, n in zip(box, view.shape))
+    bz, by, bx = (max(hi - lo, 0) for lo, hi in (z, y, x))
+    out = np.empty((bz, by, bx), np.uint8)
+    if out.size:
+        get_lib().sl_crop(_u8(view), *view.shape, z[0], y[0], x[0],
+                          bz, by, bx, _u8(out), _layer_call(out.size))
+    return out
+
+
+def skeleton_frame(skel_box, box, shape) -> np.ndarray:
+    """The full-frame bool skeleton: ``np.zeros(shape, bool)`` with
+    ``[box] = skel_box`` (nonzero = on the skeleton), written natively in
+    one pass (planes over threads from ``_THREADED_VOXELS`` voxels)."""
+    view = _mask_bytes(skel_box)
+    frame = np.empty(tuple(int(n) for n in shape), bool)
+    z0, y0, x0 = (int(sl.start) for sl in box)
+    if any(o < 0 or o + b > n for o, b, n in zip(
+            (z0, y0, x0), view.shape, frame.shape)):
+        raise ValueError(f"box skeleton {view.shape} at {(z0, y0, x0)} "
+                         f"is not inside {frame.shape}")
+    get_lib().sl_frame(_u8(view), *view.shape, z0, y0, x0,
+                       _u8(frame.view(np.uint8)), *frame.shape,
+                       _layer_call(frame.size))
+    return frame
+
+
+def _thin(vol, d2, preserve_endpoints) -> int:
+    """The layer's thinning of a C-contiguous uint8 ``vol`` in place
+    (csrc/skeleton_layer.cpp ``sl_thin``: ``thin_volume``'s deletions in
+    its order); ``d2`` squared distances or None.  Returns deletions."""
+    nz, ny, nx = vol.shape
+    stats = (ctypes.c_long * 2)()
+    d2_ptr = (ctypes.POINTER(ctypes.c_float)() if d2 is None
+              else d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    deleted = get_lib().sl_thin(_u8(vol), nz, ny, nx, d2_ptr,
+                                int(preserve_endpoints),
+                                _layer_call(vol.size), stats)
+    LAYER_COUNTS["simple_tests"] += stats[0]
+    LAYER_COUNTS["deletions"] += stats[1]
+    return int(deleted)
 
 
 def skeletonize_native(mask, distance_ordered: bool = True,
@@ -371,24 +506,17 @@ def skeletonize_native(mask, distance_ordered: bool = True,
     ops/edt.py on the cropped box, computed on ``device``."""
     full = np.asarray(mask) != 0
     box = bounding_box(full, margin=2)
-    vol = np.ascontiguousarray(full[box], dtype=np.uint8)
-    nz, ny, nx = vol.shape
-    lib = get_lib()
+    vol = crop_box(full, box)
     if distance_transform is not None:
         d2 = np.ascontiguousarray(
             np.asarray(distance_transform)[box] ** 2, dtype=np.float32)
-        d2_ptr = d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
     elif distance_ordered:
         from .edt import edt_squared
         d2 = edt_squared(vol, band=32, device=device).cpu().numpy()
-        d2_ptr = d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
     else:
-        d2_ptr = ctypes.POINTER(ctypes.c_float)()
-    lib.thin_volume(vol.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                    nz, ny, nx, d2_ptr, int(preserve_endpoints))
-    out = np.zeros(full.shape, bool)
-    out[box] = vol.astype(bool)
-    return out
+        d2 = None
+    _thin(vol, d2, preserve_endpoints)
+    return skeleton_frame(vol, box, full.shape)
 
 
 def skeletonize_native_cropped(mask_box, d2_box,
@@ -406,11 +534,7 @@ def skeletonize_native_cropped(mask_box, d2_box,
             and vol.flags['C_CONTIGUOUS']):
         vol = np.ascontiguousarray(vol != 0, dtype=np.uint8)
     d2 = np.ascontiguousarray(d2_box, dtype=np.float32)
-    nz, ny, nx = vol.shape
-    get_lib().thin_volume(
-        vol.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), nz, ny, nx,
-        d2.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        int(preserve_endpoints))
+    _thin(vol, d2, preserve_endpoints)
     return vol if clobber else vol.astype(bool)
 
 

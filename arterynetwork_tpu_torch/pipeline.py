@@ -529,8 +529,7 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
                            graph built (``ops/grow_loop``)
 
     A span is opened around a capture, never inside a captured step."""
-    from .ops.native import (bounding_box, edt_masked_native,
-                             skeletonize_native_cropped)
+    from .ops import native
 
     config = config or PipelineConfig()
     timer = StageTimer()
@@ -556,24 +555,28 @@ def run_pipeline(vesselness=None, brain_mask=None, seed_mask=None,
             # box-coordinate fast path: crop once after the mask, run EDT
             # + thinning + chain extraction on the cropped frame (squared
             # EDT end to end), and emit full-frame coordinates only at the
-            # segment / skeleton boundaries
+            # segment / skeleton boundaries (the passes are the port's
+            # csrc/skeleton_layer.cpp)
             with span("edt"):
-                box = bounding_box(mask, margin=2)
+                box = native.bounding_box(mask, margin=2)
                 origin = tuple(int(s.start) for s in box)
                 # a fresh copy: the thinning below clobbers it in place
-                mask_box = np.array(mask[box], dtype=np.uint8, order="C")
-                d2_box = edt_masked_native(mask_box, squared=True)
+                mask_box = native.crop_box(mask, box)
+                rows = np.empty(mask_box.shape[:2], np.uint8)
+                d2_box = native.edt_masked_native(mask_box, squared=True,
+                                                  rows=rows)
 
             with span("skeletonization"):
                 with span("thinning"):
-                    skel_work = skeletonize_native_cropped(
+                    skel_work = native.skeletonize_native_cropped(
                         mask_box, d2_box,
                         preserve_endpoints=config.skeleton
                         .preserve_endpoints, clobber=True)
-                # the thinning consumed the squares
-                dt = np.sqrt(d2_box, out=d2_box)
-                skeleton = np.zeros(mask.shape, bool)
-                skeleton[box] = skel_work
+                # the thinning consumed the squares; the roots are taken
+                # on the rows that hold foreground (0 elsewhere)
+                dt = native.sqrt_rows(d2_box, rows)
+                skeleton = native.skeleton_frame(skel_work, box,
+                                                 mask.shape)
                 if store is not None:
                     store.save_nifti("skeleton.nii.gz",
                                      skeleton.astype(np.uint8),
